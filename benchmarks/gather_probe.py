@@ -1,9 +1,7 @@
 """Microbenchmark of grid->events gather formulations at flagship shapes.
 
-The template-value decomposition (benchmarks/template_value_decomp.py)
-attributes ~1.6 ms/eval — the largest single item — to the (12, 20k)
-events gather from the (6, 40k) rate table. XLA:TPU lowers a scalar
-gather at ~7 ns/element; this probe measures alternatives:
+Times the (12, 20k) events gather from the (6, 40k) rate table, which the
+rate-deferral histogram replaces, against alternative formulations:
 
   flat        out = flat_table[gidx]                      (shipping path)
   2d-batched  per-category rows view + take_along_axis

@@ -1,117 +1,168 @@
 """
-Standalone timing probe for the Pallas layer-chain oscillation kernel.
+Oscillation chain kernel vs the XLA formulation on one NVIDIA GPU.
 
-Reproduces the flagship access pattern (sequential single-propagation
-launches over chain-length-sorted PREM-12 geometry at the flagship grid
-size) without building the whole pipeline, so kernel changes can be A/B
-measured in seconds instead of minutes. The roofline doc's
-"1.10 ms/propagation, 313k point-layer steps" numbers come from this
-shape (cf. BASELINE_MEASURED.md "The oscillation kernel is
-VPU-issue-bound").
+In one process, at the flagship shapes (IceCube 3-year pipeline, 200x200
+grid over PREM-12 chains, 15 free parameters), times in turns
+(XLA, kernel, kernel, XLA):
 
-Usage: python benchmarks/osc_kernel_probe.py [--n 40960] [--reps 50]
-Prints ms/propagation (sequential launches) and the executed point-layer
-step count implied by the per-block dynamic bounds.
+- the compiled template (one evaluation, ending in block_until_ready);
+- the objective's full value_and_grad;
+
+and at the kernel level, the primal launch with both neutrino signs on one
+grid against two single-sign launches, and one tangent launch.
+``--sweep`` also times the primal and the 3-tangent gradient for a set of
+(BLOCK, NUM_WARPS) settings.
+
+Usage: python benchmarks/osc_kernel_probe.py [--reps 30] [--sweep]
+Prints one JSON line per measurement and a table at the end; every line
+names the card and its power limit.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import subprocess
+import sys
 import time
 
 import numpy as np
 
+CFG = "settings/pipeline/IceCube_3y_neutrinos.cfg"
+SWEEP = [(32, 1), (64, 1), (64, 2), (128, 2), (128, 4)]
+
+
+def wall_ms(fn, args, reps):
+    import jax
+
+    jax.block_until_ready(fn(*args))
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn(*args)
+    jax.block_until_ready(out)
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def build(use_kernel):
+    """Compiled template + value_and_grad programs with the oscillation
+    path forced, compiled while forced (programs trace on first call)."""
+    import jax
+    import jax.numpy as jnp
+
+    from pisa_tpu.core.pipeline import Pipeline
+    from pisa_tpu.stages.osc import prob3 as prob3_mod
+
+    real = prob3_mod.use_chain_kernel
+    if not use_kernel:
+        prob3_mod.use_chain_kernel = lambda *a: False
+    try:
+        ct = Pipeline(CFG).compile()
+        v0 = ct.current_rescaled_values()
+        los, his = ct._current_bounds()
+        v = jnp.asarray(np.clip(v0 + 0.05, 0.05, 0.95))
+        targs = (v, jnp.asarray(los), jnp.asarray(his), ct._data_vals)
+        value_fn, _ = ct.build_objective(ct.get_outputs(v0), "mod_chi2")
+        vg = jax.jit(jax.value_and_grad(value_fn.raw))
+        t0 = time.perf_counter()
+        jax.block_until_ready(ct._jitted(*targs))
+        t_tmpl = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        jax.block_until_ready(vg(*targs))
+        t_vg = time.perf_counter() - t0
+    finally:
+        prob3_mod.use_chain_kernel = real
+    kernel_used = "osc_blk_e" in ct._trace_data.containers[0]
+    assert kernel_used == use_kernel
+    return dict(tmpl=ct._jitted, vg=vg, args=targs, compile_tmpl=t_tmpl,
+                compile_vg=t_vg, ct=ct)
+
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--n", type=int, default=40960)
-    ap.add_argument("--reps", type=int, default=50)
-    ap.add_argument("--tangent", action="store_true",
-                    help="probe the tangent kernel instead of the primal")
+    ap.add_argument("--reps", type=int, default=30)
+    ap.add_argument("--sweep", action="store_true")
     args = ap.parse_args()
+
+    limit = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.splitlines()[0].strip()
 
     import jax
     import jax.numpy as jnp
 
     from pisa_tpu.ops.osc import pallas_chain as pc
-    from pisa_tpu.ops.osc.layers import Layers
-    from pisa_tpu.ops.osc.pmns import dm_matrix, pmns_matrix
 
-    dtype = np.float32 if not jax.config.jax_enable_x64 else np.float64
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        raise SystemExit(f"needs a GPU; JAX found {dev.platform}")
+    tag = {"device_kind": dev.device_kind, "card": limit}
+    rows = []
 
-    rng = np.random.RandomState(3)
-    n = args.n
-    # flagship-like grid: coszen spans the full sky (downgoing chains are
-    # 2 slots, core-crossing ~24), energies 1-100 GeV
-    cz = np.linspace(-1.0, 1.0, n).astype(dtype)
-    e = (10 ** rng.uniform(0.0, 2.0, n)).astype(dtype)
+    def emit(**rec):
+        rec.update(tag)
+        rows.append(rec)
+        print(json.dumps(rec), flush=True)
 
-    layers = Layers("osc/PREM_12layer.dat", detector_depth=2.0,
-                    prop_height=20.0)
-    layers.setElecFrac(0.4656, 0.4656, 0.4957)
-    layers.calcLayers(cz)
-    densities = layers.density.reshape(n, layers.max_layers).astype(dtype)
-    distances = layers.distance.reshape(n, layers.max_layers).astype(dtype)
+    progs = {"xla": build(False), "kernel": build(True)}
+    for name, p in progs.items():
+        emit(path=name, what="set-up: compile+first template s",
+             value=round(p["compile_tmpl"], 2))
+        emit(path=name, what="set-up: compile+first value_and_grad s",
+             value=round(p["compile_vg"], 2))
+    for name in ("xla", "kernel", "kernel", "xla"):
+        p = progs[name]
+        emit(path=name, what="template ms",
+             value=round(wall_ms(p["tmpl"], p["args"], args.reps), 4))
+        emit(path=name, what="value_and_grad ms",
+             value=round(wall_ms(p["vg"], p["args"], args.reps), 4))
 
-    order = np.argsort((distances > 0).sum(axis=1), kind="stable")
-    geom = pc.prepare_chain_geometry(e, densities, distances, order=order)
-    geom = {k: jax.device_put(v) for k, v in geom.items()}
+    # kernel level, at the flagship grid
+    ct = progs["kernel"]["ct"]
+    stage = [s for s in ct.pipeline.stages
+             if type(s).__name__ == "prob3"][0]
+    c = stage.data.containers[0]
+    c.representation = stage.calc_mode
+    e, dens, dist = (np.asarray(c[k], np.float32)
+                     for k in ("true_energy", "densities", "distances"))
+    theta = jnp.asarray([0.5836, 0.1496, 0.8587, 0.0, 7.4e-5, 2.5e-3],
+                        jnp.float32)
 
-    # executed point-layer steps implied by the per-block bounds, counting
-    # the UNROLL round-up the kernel actually runs (ceil(nl/UNROLL)*UNROLL);
-    # the dense rectangle is measured against the ORIGINAL layer width, with
-    # the padded width reported separately
-    nl = np.asarray(geom["nl"]).ravel()
-    block = pc.BLOCK_ROWS * pc.LANES
-    executed = -(-nl // pc.UNROLL) * pc.UNROLL
-    steps = int(executed.sum()) * block
-    dense = len(nl) * int(distances.shape[1]) * block
-    pad_layers = int(np.asarray(geom["dens"]).shape[0])
+    def kernel_fns():
+        geom = {k: jnp.asarray(v) for k, v in pc.prepare_chain_geometry(
+            e, dens, dist, block=pc.BLOCK).items()}
+        both = jax.jit(lambda t, g: pc.osc_probs_planar(t, (1, -1), g))
+        two = jax.jit(lambda t, g: [pc.osc_probs_planar(t, (s,), g)
+                                    for s in (1, -1)])
+        grad = jax.jit(jax.grad(lambda t, g: jnp.sum(pc.osc_probs_planar(
+            t, (1, -1), g, active=(1, 2, 5)))))
+        return geom, both, two, grad
 
-    mix = pmns_matrix(np.sin(0.5838), np.sin(0.1496), np.sin(0.8587),
-                      4.084)
-    dm = dm_matrix(7.42e-5, 2.514e-3)
-    from pisa_tpu.ops.cplx import C
-    mat_pot = C.of(np.diag([1.0, 0.0, 0.0]).astype(np.complex128))
-    lri = np.zeros((3, 3), dtype)
-    pvec = pc._pack_from_physics(dm, mix, mat_pot, lri, 1, dtype)
-    pvec = jax.device_put(pvec)
+    geom, both, two, grad = kernel_fns()
+    emit(path="kernel", what="primal both signs, one launch ms",
+         value=round(wall_ms(both, (theta, geom), args.reps * 10), 4))
+    emit(path="kernel", what="primal, two single-sign launches ms",
+         value=round(wall_ms(two, (theta, geom), args.reps * 10), 4))
+    emit(path="kernel", what="primal + 3 tangents (grad) ms",
+         value=round(wall_ms(grad, (theta, geom), args.reps * 10), 4))
 
-    if args.tangent:
-        dpvec = jax.device_put(
-            jnp.asarray(rng.normal(size=pvec.shape) * 1e-3, dtype=dtype))
+    if args.sweep:
+        for block, warps in SWEEP:
+            pc.BLOCK, pc.NUM_WARPS = block, warps
+            geom, both, _two, grad = kernel_fns()
+            cfg = f"BLOCK={block} NUM_WARPS={warps}"
+            emit(path="kernel", what=f"sweep {cfg} primal ms",
+                 value=round(wall_ms(both, (theta, geom),
+                                     args.reps * 10), 4))
+            emit(path="kernel", what=f"sweep {cfg} grad ms",
+                 value=round(wall_ms(grad, (theta, geom),
+                                     args.reps * 10), 4))
 
-        @jax.jit
-        def prog(pv, dpv):
-            return pc._launch_tangent(
-                pv, dpv, geom["e2"], geom["dens"], geom["dist"],
-                geom["nl"], n)
-
-        call = lambda: prog(pvec, dpvec)
-    else:
-
-        @jax.jit
-        def prog(pv):
-            return pc.chain_probs_pallas_prepared(pv, geom, n, raw=True)
-
-        call = lambda: prog(pvec)
-
-    out = jax.block_until_ready(call())  # compile
-    t0 = time.time()
-    for _ in range(args.reps):
-        out = call()
-    jax.block_until_ready(out)
-    dt = (time.time() - t0) / args.reps
-    kind = "tangent" if args.tangent else "primal"
-    print(
-        f"{kind}: {dt * 1e3:.3f} ms/propagation  "
-        f"(n={n}, BLOCK_ROWS={pc.BLOCK_ROWS}, unroll={pc.UNROLL}, "
-        f"steps={steps/1e3:.0f}k = {100.0 * steps / dense:.1f}% of dense "
-        f"({distances.shape[1]} layers, padded to {pad_layers}), "
-        f"platform={jax.default_backend()})"
-    )
-    # checksum so A/B runs can confirm identical math
-    print(f"checksum: {float(np.asarray(out, dtype=np.float64).sum()):.9e}")
+    print(f"\n{dev.device_kind} ({limit})", file=sys.stderr)
+    for r in rows:
+        print(f"{r['path']:7s} {r['what']:55s} {r['value']}",
+              file=sys.stderr)
 
 
 if __name__ == "__main__":

@@ -19,7 +19,7 @@ grid points x ~#layers (the reference JIT-compiles a per-point scalar loop;
 vectorized numpy runs the identical flop stream through compiled C loops).
 Per-op dispatch overhead is amortized over the 40k-point batch. On this
 box's single vCPU the proxy is if anything FASTER than single-thread numba
-scalar code would be (measured in ``BASELINE_MEASURED.md``); the recorded
+scalar code would be; the recorded
 baseline additionally multiplies by the CI benchmark box's 4 vCPUs
 (``.github/workflows/benchmark_pipeline_times.yml``: PISA_TARGET=parallel,
 4 threads) as a conservative upper bound on reference parallel scaling.

@@ -1,5 +1,5 @@
 """Measure the container-stacking effect on the flagship template and its
-gradient, on whatever backend JAX selects (run on the TPU for the numbers of
+gradient, on whatever backend JAX selects (run on the GPU for the numbers of
 record). Usage: python benchmarks/stacking_bench.py [--no-stack]"""
 
 import os

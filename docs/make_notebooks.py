@@ -1,11 +1,11 @@
 """
-Build and EXECUTE the walkthrough notebooks (committed with outputs), the
-counterpart of the reference's executed ``pisa_examples/*.ipynb``
+Build and execute the walkthrough notebooks, the counterpart of the
+reference's executed ``pisa_examples/*.ipynb``
 (``IceCube_3y_oscillations_example.ipynb``, ``README.ipynb``).
 
-Writes examples/notebooks/{oscillograms,icecube_3y_fit}.ipynb, executed
-in-process order with nbclient on the CPU backend so the committed outputs
-are reproducible anywhere.
+Writes examples/notebooks/*.ipynb, executed in order with nbclient on the
+CPU backend so the outputs are reproducible anywhere; the committed copies
+carry no outputs.
 
 Usage: python docs/make_notebooks.py [outdir]
 """
@@ -38,7 +38,7 @@ OSC = [
     ("md", """\
 # Oscillograms quick-start
 
-The TPU-native counterpart of the reference's `pisa_examples/README.ipynb`:
+The compiled counterpart of the reference's `pisa_examples/README.ipynb`:
 build the oscillogram pipeline (`osc_example.cfg`: a grid of toy "events"
 → Barr-parameterized atmospheric flux → full 3-flavor matter oscillations
 through the PREM Earth model), run it, and look at the resulting
@@ -48,8 +48,9 @@ Everything below a `Pipeline` is one differentiable JAX program; the same
 config drives the eager per-stage path used here and the compiled
 single-dispatch template used by fits."""),
     ("code", """\
+import os
+os.environ.setdefault("JAX_PLATFORMS", "cpu")  # reproducible CPU outputs
 import jax
-jax.config.update("jax_platforms", "cpu")  # deterministic CPU outputs
 import numpy as np
 import matplotlib
 matplotlib.use("Agg")
@@ -107,7 +108,7 @@ ICECUBE = [
     ("md", """\
 # IceCube 3-year oscillation analysis
 
-The TPU-native counterpart of the reference's
+The compiled counterpart of the reference's
 `pisa_examples/IceCube_3y_oscillations_example.ipynb`: the
 neutrino pipeline (`csv_loader → honda_ip → barr_simple → prob3 → aeff →
 hist → hypersurfaces`, 240k MC events) plus the atmospheric-muon
@@ -118,8 +119,9 @@ background pipeline, combined by a `DistributionMaker`, then an Asimov
 > data-release schema; swap in the real release file for physics
 > results."""),
     ("code", """\
+import os
+os.environ.setdefault("JAX_PLATFORMS", "cpu")  # reproducible CPU outputs
 import jax
-jax.config.update("jax_platforms", "cpu")  # deterministic CPU outputs
 import numpy as np
 
 from pisa_tpu import ureg
@@ -189,15 +191,16 @@ MCMC = [
     ("md", """\
 # Bayesian posterior sampling (MCMC)
 
-The TPU-native counterpart of the reference's
+The compiled counterpart of the reference's
 `pisa_examples/MCMC_example.ipynb`. The reference farms a serial `emcee`
 sampler out to a fork-server of llh processes over TCP sockets
 (`pisa/utils/llh_server.py`); here the affine-invariant stretch-move
 ensemble is NATIVE and vmapped — every walker's template is one row of a
 single batched device program, so one MCMC step costs one dispatch."""),
     ("code", """\
+import os
+os.environ.setdefault("JAX_PLATFORMS", "cpu")  # reproducible CPU outputs
 import jax
-jax.config.update("jax_platforms", "cpu")  # deterministic CPU outputs
 import numpy as np
 
 from pisa_tpu import ureg
@@ -222,7 +225,7 @@ ct = CompiledDistribution(dm)
 chain, logp, acceptance = mcmc_sampling(
     ct, data, metric="llh", n_walkers=16, n_steps=150, n_burnin=50,
     seed=7,
-)  # CPU-sized; raise walkers/steps on TPU
+)  # CPU-sized; raise walkers/steps on a GPU
 print(f"chain shape {chain.shape} (steps, walkers, params)")
 print(f"acceptance fraction: {acceptance:.2f}")"""),
     ("code", """\
@@ -268,15 +271,16 @@ MULTIDET = [
     ("md", """\
 # Multi-detector joint fit
 
-The TPU-native counterpart of the reference's
+The compiled counterpart of the reference's
 `pisa_examples/Multi_detector_test.ipynb`: two detectors observe the same
 oscillation physics — `theta23`/`deltam31` are SHARED `Param` objects
 across both pipelines, while detector systematics stay independent (the
 `Detectors` container suffixes them `_detA`/`_detB`; cf. reference
 `pisa/core/detectors.py:224-234`)."""),
     ("code", """\
+import os
+os.environ.setdefault("JAX_PLATFORMS", "cpu")  # reproducible CPU outputs
 import jax
-jax.config.update("jax_platforms", "cpu")  # deterministic CPU outputs
 import tempfile
 from pathlib import Path
 
@@ -356,15 +360,16 @@ VARBIN = [
     ("md", """\
 # Variable binning
 
-The TPU-native counterpart of the reference's
+The compiled counterpart of the reference's
 `pisa_examples/Variable_binning_example.ipynb`: a `VarBinning` output
 splits the events into mutually-exclusive selections (here two PID
 bands), each histogrammed under its OWN `MultiDimBinning` — e.g. a
 fine binning where the detector resolves well and a coarse one where it
 does not. `get_outputs()` returns one MapSet per selection."""),
     ("code", """\
+import os
+os.environ.setdefault("JAX_PLATFORMS", "cpu")  # reproducible CPU outputs
 import jax
-jax.config.update("jax_platforms", "cpu")  # deterministic CPU outputs
 import numpy as np
 
 from pisa_tpu.core.pipeline import Pipeline
@@ -403,7 +408,7 @@ EVENT_INFO = [
     ("md", """\
 # Event-wise information from a pipeline
 
-The TPU-native counterpart of the reference's
+The compiled counterpart of the reference's
 `pisa_examples/event_info.ipynb`: run a pipeline WITHOUT the final
 histogramming stage and read the per-event arrays (weights, energies,
 flux factors, oscillation probabilities) straight off the shared
@@ -414,8 +419,9 @@ Every `Container` holds its variables simultaneously in an `events`
 representation and any number of binned representations, translated
 lazily on access (cf. reference `container.py:1-181`)."""),
     ("code", """\
+import os
+os.environ.setdefault("JAX_PLATFORMS", "cpu")  # reproducible CPU outputs
 import jax
-jax.config.update("jax_platforms", "cpu")  # deterministic CPU outputs
 import numpy as np
 
 from pisa_tpu.core.pipeline import Pipeline
@@ -474,7 +480,7 @@ PISA_MODES = [
     ("md", """\
 # Stage calc/apply modes
 
-The TPU-native counterpart of the reference's
+The compiled counterpart of the reference's
 `pisa_examples/pisa_modes.ipynb`: every stage has a `calc_mode`
 (representation its physics is computed in) and an `apply_mode`
 (representation its weight modification is applied in). The same
@@ -488,8 +494,9 @@ The auto-generated service support matrix lives at
     ("code", """\
 import time
 
+import os
+os.environ.setdefault("JAX_PLATFORMS", "cpu")  # reproducible CPU outputs
 import jax
-jax.config.update("jax_platforms", "cpu")  # deterministic CPU outputs
 import numpy as np
 
 from pisa_tpu.config.parser import parse_pipeline_config
@@ -546,7 +553,7 @@ DAEMONFLUX = [
     ("md", """\
 # DAEMONFLUX stage
 
-The TPU-native counterpart of the reference's
+The compiled counterpart of the reference's
 `pisa_examples/test_daemonflux_stage.ipynb`: the daemonflux calibrated
 atmospheric flux (arXiv:2303.00022) with 24 correlated `daemon_*`
 parameters and a single covariance chi2 penalty replacing their
@@ -558,8 +565,9 @@ matrix whose inverse diagonal reproduces the reference's published
 single-pull penalties exactly — see
 `scripts/make_daemonflux_correlations.py` for the derivation."""),
     ("code", """\
+import os
+os.environ.setdefault("JAX_PLATFORMS", "cpu")  # reproducible CPU outputs
 import jax
-jax.config.update("jax_platforms", "cpu")  # deterministic CPU outputs
 import numpy as np
 
 from pisa_tpu.core.pipeline import Pipeline

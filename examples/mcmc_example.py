@@ -2,7 +2,7 @@
 Bayesian posterior sampling (cf. reference
 ``pisa_examples/MCMC_example.ipynb``): affine-invariant ensemble MCMC over
 the compiled template objective, with all walkers evaluated as one vmapped
-batch per step (the TPU-native replacement for the reference's
+batch per step (the replacement for the reference's
 llh-server/emcee farm).
 """
 
@@ -27,7 +27,7 @@ def main(n_walkers=32, n_steps=300, n_burnin=100):
     chain, logp, acceptance = mcmc_sampling(
         ct, data, metric="llh", n_walkers=n_walkers, n_steps=n_steps,
         n_burnin=n_burnin, seed=7,
-    )  # sized for TPU; pass smaller numbers on CPU
+    )  # sized for a GPU; pass smaller numbers on CPU
     names = dm.params.free.names
     print(f"acceptance: {acceptance:.2f}")
     for i, name in enumerate(names):

@@ -3,7 +3,7 @@ End-to-end walkthrough (cf. the reference's README/IceCube-3y notebooks):
 build the flagship pipeline, look at templates, compile it, run an Asimov
 fit with analytic gradients, and sample a posterior.
 
-Run:  python examples/walkthrough.py  (CPU ok; TPU if available)
+Run:  python examples/walkthrough.py  (CPU ok; GPU if available)
 """
 
 import numpy as np

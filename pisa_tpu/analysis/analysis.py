@@ -11,7 +11,7 @@ methods (dispatched by :meth:`BasicAnalysis.fit_recursively`):
                jitted template (the reference burns ~2N finite-difference
                templates per step).
 - 'gradient' : pure compiled-path fit: jitted value+grad objective into
-               scipy L-BFGS-B/SLSQP/trust-constr (TPU-first addition).
+               scipy L-BFGS-B/SLSQP/trust-constr (an addition to the reference).
 - 'octants'  : fit both theta23 octants, keep the better
                (cf. ``_fit_octants``).
 - 'best_of', 'ranges', 'grid_scan', 'condition', 'staged', 'constrained':
@@ -852,7 +852,7 @@ class BasicAnalysis:
         self, data_dist, hypo_maker, metric, external_priors_penalty,
         method_kwargs, local_fit_kwargs,
     ):
-        """Pure compiled-path gradient fit (TPU-first)."""
+        """Pure compiled-path gradient fit."""
         kwargs = dict(method_kwargs or {})
         kwargs.setdefault("method", "l-bfgs-b")
         kwargs["gradient"] = True
@@ -883,8 +883,8 @@ class BasicAnalysis:
         max_steps = int(kwargs.pop("max_steps", 200))
         gtol = kwargs.pop("gtol", None)  # None -> precision-aware default
         # small-workload routing: platform="cpu" runs the whole fit program
-        # on the host backend — toy-scale fits are per-dispatch-latency
-        # bound, so a remote/tunneled accelerator LOSES to the host there
+        # on the host backend, which can win for toy-scale fits bound by
+        # per-iteration launch overhead
         platform = kwargs.pop("platform", None)
         if kwargs:
             raise ValueError(f"unknown device-fit options: {sorted(kwargs)}")

@@ -3,7 +3,7 @@ Bayesian posterior sampling (cf. reference ``pisa/analysis/bayesian_analysis.py:
 which wraps serial emcee fed by a TCP llh-server farm,
 ``pisa/utils/llh_server.py``).
 
-TPU-native redesign: a Goodman & Weare (2010) affine-invariant ensemble
+Redesign: a Goodman & Weare (2010) affine-invariant ensemble
 ("stretch move") sampler written in JAX — all walkers evaluate the compiled
 template objective in one vmapped call per half-ensemble, and the whole
 chain is a single ``lax.scan`` on device. No sockets, no processes.

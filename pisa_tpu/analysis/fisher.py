@@ -3,7 +3,7 @@ Fisher-matrix sensitivity estimation and the linearized "pull" method
 (cf. reference ``pisa/utils/fisher_matrix.py`` and
 ``pisa/utils/pull_method.py``).
 
-TPU-first redesign: the reference builds Fisher matrices from
+Redesign: the reference builds Fisher matrices from
 finite-difference template derivatives; here the per-bin template jacobian
 w.r.t. the free parameters is ANALYTIC (one ``jax.jacfwd`` of the compiled
 template), so the matrix is exact at the linearization point and costs a

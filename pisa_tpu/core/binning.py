@@ -1,7 +1,7 @@
 """
 Histogram binning structures: OneDimBinning, MultiDimBinning, VarBinning.
 
-TPU-first rebuild of reference ``pisa/core/binning.py:142,1484,3043``. These
+Rebuild of reference ``pisa/core/binning.py:142,1484,3043``. These
 are immutable, hashable host-side objects: inside jitted code only their
 ``edge`` arrays (plain numpy/jax arrays, static shapes) appear. Unit handling
 follows the reference: bin edges are unit-tagged at the API boundary and

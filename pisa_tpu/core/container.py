@@ -16,7 +16,7 @@ preserved:
 - ``link_containers`` groups physically-identical containers so shared
   quantities are computed once (``VirtualContainer``)
 
-Deltas from the reference (TPU-first): no 'log_events' representation (the
+Deltas from the reference: no 'log_events' representation (the
 JAX lookup kernels use one uniform search path), and arrays may be jax
 device arrays so stage code can be traced into a single compiled template
 function.
@@ -331,8 +331,8 @@ class Container:
         the traced program as a device *argument*.
 
         ``weights @ matrix`` is then the histogram as one dense matmul
-        (:func:`pisa_tpu.core.translation.histogram_matmul`) — on TPU the
-        MXU path, ~6x faster than the scatter-add at the IceCube-3y shapes.
+        (:func:`pisa_tpu.core.translation.histogram_matmul`) instead of a
+        scatter-add.
 
         Returns None (callers fall back to the scatter histogram) when the
         cache is cold under tracing, or when the dense matrix would be

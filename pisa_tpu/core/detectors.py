@@ -7,7 +7,7 @@ exposes a joint ParamSet: shared params appear once; same-named non-shared
 params get a ``_<detector_name>`` suffix (the first detector keeps the bare
 name) (cf. reference ``detectors.py:209-238``).
 
-TPU-first delta: instead of the reference's deepcopy-rename + re-sync-on-
+Delta from the reference: instead of the reference's deepcopy-rename + re-sync-on-
 hash-change dance, *shared* params are made shared by object identity across
 the distribution makers (one Param object, exactly like param sharing inside
 a pipeline), so setting them anywhere updates every detector with no

@@ -1,7 +1,7 @@
 """
 Map and MapSet: binned templates with optional per-bin uncertainties.
 
-TPU-first rebuild of reference ``pisa/core/map.py:221,2108``. A Map is a
+Rebuild of reference ``pisa/core/map.py:221,2108``. A Map is a
 host-boundary object — the jitted pipeline produces raw (hist, variance)
 arrays which are wrapped into Maps at the end. Error propagation through Map
 arithmetic uses explicit (value, variance) pairs assuming independent

@@ -1,7 +1,7 @@
 """
 Parameters, parameter sets, and parameter selectors.
 
-TPU-first rebuild of reference ``pisa/core/param.py:77,579,769,1604``.
+Rebuild of reference ``pisa/core/param.py:77,579,769,1604``.
 Params are mutable host-side objects; identity-sharing (one Param object
 aliased by several stages/pipelines) is the mechanism by which a single
 fit parameter steers multiple pipeline components, exactly as in the

@@ -7,7 +7,7 @@ its stage services by import path ``pisa_tpu.stages.<stage>.<service>``,
 unifies same-named params across stages into shared objects
 (cf. ``pipeline.py:342-346``), and evaluates templates via ``get_outputs()``.
 
-TPU-first addition: :meth:`Pipeline.compile` traces the full stage chain
+Addition to the reference: :meth:`Pipeline.compile` traces the full stage chain
 into a single jitted, differentiable ``rescaled_free_params -> histograms``
 function (see :mod:`pisa_tpu.core.template`), which the fitting layer uses
 for analytic-gradient minimization; ``get_outputs`` remains the eager path.

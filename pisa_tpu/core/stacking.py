@@ -2,14 +2,12 @@
 Container stacking: collapse a pipeline's per-category event containers into
 ONE container whose arrays carry a leading category axis.
 
-Motivation (TPU-first): the reference pipeline model — and the eager path
-here — runs every stage once per event category (12 containers on the
-IceCube-3y flagship), so a compiled template contains ~12 copies of every
-per-event op chain. Each copy is a small fusion; on TPU the per-fusion fixed
-cost (not FLOPs or bandwidth) dominates the downstream stages and, worse,
-their reverse-mode gradients (measured: ~25 ms of the flagship's ~42 ms
-value_and_grad was latency-bound small-fusion tail; BASELINE_MEASURED.md
-"Roofline"). Stacking turns those 12 chains into ONE chain over ``(C, N)``
+Motivation: the reference pipeline model — and the eager path here — runs
+every stage once per event category (12 containers on the IceCube-3y
+flagship), so a compiled template contains ~12 copies of every per-event op
+chain. Each copy is a small fusion whose fixed launch cost, not its FLOPs or
+bandwidth, dominates the downstream stages and their reverse-mode
+gradients. Stacking turns those 12 chains into ONE chain over ``(C, N)``
 arrays: same FLOPs, ~12x fewer HLO ops.
 
 Representation model
@@ -247,13 +245,7 @@ class StackedContainer(Container):
         rows indirection folded into one flat gather.
 
         The gather's reverse-mode transpose is XLA's scatter-add of the
-        event cotangents into the grid cells. A sorted-cumsum segment
-        reduction (static permutation + prefix sum + boundary differences)
-        was prototyped as a scatter-free replacement and MEASURED SLOWER on
-        TPU v5e at flagship shapes — 5.0 ms (jnp.cumsum/reduce_window) and
-        5.4 ms (associative_scan ladder) vs 1.5 ms for the native scatter
-        transpose (artifacts/grad_decomp_r05_{staticgather,ascan}.log) — so
-        the plain gather stays."""
+        event cotangents into the grid cells."""
         idx = self._events_flat_indices(src_binning)
         size = src_binning.size
         vals = jnp.asarray(values)
@@ -327,7 +319,7 @@ class StackedContainer(Container):
 
     def stacked_histogram(self, values, binning, averaged=False):
         """(C, n_pad[, k]) event values -> (C, size[, k]) per-category
-        histogram: one batched MXU matmul against the cached stacked one-hot
+        histogram: one batched matmul against the cached stacked one-hot
         when available, otherwise one offset scatter-add."""
         w = jnp.asarray(values)
         matrix = self.cached_hist_matrix(binning, events_rep="events")

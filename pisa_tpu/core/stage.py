@@ -120,8 +120,8 @@ class Stage:
     #: event weights by (static per-event field) x (per-category scalar).
     #: Under deferral the factorized histogram H[c, b] =
     #: s_c * sum_g rate[row_c, g] * S_c[g, b] replaces the 240k-index
-    #: grid->events gather (XLA:TPU ~7 ns/index, 1.6 ms/template measured)
-    #: with one static MXU contraction. Default False: any undeclared
+    #: grid->events gather and its reverse-mode scatter with one static
+    #: dense contraction. Default False: any undeclared
     #: stage in the lineup disables deferral.
     stacked_rate_defer_safe = False
 

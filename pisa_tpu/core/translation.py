@@ -1,5 +1,5 @@
 """
-Events <-> binned translation kernels, TPU-native.
+Events <-> binned translation kernels.
 
 Rebuild of reference ``pisa/core/translation.py:49,90,228,504`` (numba
 gufuncs + fast_histogram) as pure JAX ops:
@@ -77,7 +77,7 @@ def find_index(vals, edges, is_lin=False, is_log=False):
     # searchsorted is correct for all spacings; closed-form fast paths for
     # regular binnings can disagree with numpy at ulp-level on edges, so we
     # use searchsorted universally -- XLA lowers this to a vectorized
-    # branchless binary search which is cheap on TPU for <= 2^12 bins.
+    # branchless binary search, cheap for <= 2^12 bins.
     idx = jnp.searchsorted(edges, vals, side="right") - 1
     idx = jnp.where(vals == edges[-1], n - 1, idx)
     idx = jnp.where(jnp.isnan(vals), n, idx)
@@ -145,13 +145,11 @@ def build_pull_transpose(flat_idx, table_size, max_fanout=32):
     cap land in small COO overflow lists.
 
     The reverse-mode transpose of ``table[flat_idx]`` is a scatter-add of the
-    event cotangents into the table — XLA:TPU serializes that scatter
-    (~1.5 ms at flagship shapes, artifacts/grad_decomp_r05_staticgather.log
-    measured two scan-based alternatives even slower). Because ``flat_idx``
-    is parameter-independent (event coordinates are data), the scatter's
-    sparsity pattern is static and the whole transpose can instead be a
-    dense ``(table_size, B)`` gather of the cotangents plus a row-sum — a
-    pattern TPUs execute at HBM bandwidth.
+    event cotangents into the table, which serialises on colliding
+    indices. Because ``flat_idx`` is parameter-independent (event
+    coordinates are data), the scatter's sparsity pattern is static and the
+    whole transpose can instead be a dense ``(table_size, B)`` gather of the
+    cotangents plus a row-sum, which runs at memory bandwidth.
 
     Parameters
     ----------
@@ -297,18 +295,16 @@ def histogram(
 
 
 def histogram_matmul(weights, matrix):
-    """Histogram as a dense one-hot matmul — the MXU path.
+    """Histogram as a dense one-hot matmul.
 
     ``matrix`` is the param-independent ``(n_events, size)`` one-hot bin
     membership matrix (an all-zero row marks an out-of-range event), built
     once per (container, binning) by
     :meth:`pisa_tpu.core.container.Container.cached_hist_matrix`; the
     per-template histogram then is ``weights @ matrix`` — one dense matmul
-    that XLA tiles onto the MXU instead of a serialized scatter-add.
-    Measured on TPU v5e at the IceCube-3y shapes (12 containers x ~20k
-    events x 128 bins x 3 weight channels per template): ~6x faster than
-    the scatter-add histogram, and its transpose (the reverse-mode
-    gradient) is another dense matmul.
+    instead of a scatter-add, and its transpose (the reverse-mode gradient)
+    is another dense matmul. Which of the two formulations is faster on a
+    GPU at the flagship shapes has not been measured.
 
     ``Precision.HIGHEST`` keeps the products exact (one-hot entries are
     0/1) with float32 accumulation — the same accumulation precision as the
@@ -338,7 +334,7 @@ def histogram_matmul_stacked(weights, matrix):
     stacked one-hot membership matrix (zero rows mark padded / out-of-range
     events), ``weights`` is ``(C, N)`` or ``(C, N, ch)``; the result matches
     C calls of :func:`histogram_matmul` but costs a single batched matmul
-    (XLA tiles the batch onto the MXU) instead of C separate ops.
+    instead of C separate ops.
 
     Returns ``(C, size)`` or ``(C, size, ch)``.
     """

@@ -1,10 +1,10 @@
 """
 Complex arithmetic on split (re, im) real arrays.
 
-The TPU backend in this environment supports no complex dtypes at all
-(c64/c128 ops fail with UNIMPLEMENTED), so every complex computation in the
-framework — most importantly the 3x3 oscillation algebra — is expressed over
-a :class:`C` pair of real arrays. As a NamedTuple, ``C`` is automatically a
+Every complex computation in the framework — most importantly the 3x3
+oscillation algebra — is expressed over a :class:`C` pair of real arrays,
+so the same code runs in XLA formulations and inside Pallas kernels (which
+take real arrays only), in fp32 and fp64 alike. As a NamedTuple, ``C`` is automatically a
 JAX pytree, so it flows through jit/vmap/scan/grad transparently; XLA fuses
 the split arithmetic exactly as it would have lowered native complex ops.
 """
@@ -34,7 +34,7 @@ class C(NamedTuple):
     @staticmethod
     def of(z):
         """From a (numpy/jax) complex or real array. Complex numpy inputs are
-        split on the host — complex dtypes must never reach the TPU."""
+        split on the host, so complex dtypes never reach the device."""
         if isinstance(z, C):
             return z
         if isinstance(z, (np.ndarray, np.generic, complex)) and np.iscomplexobj(z):
@@ -111,8 +111,9 @@ class C(NamedTuple):
     def matmul(self, o):
         """Batched matrix product over the last two axes.
 
-        Always full fp32 precision: TPU matmuls default to bfloat16 MXU
-        passes, which is catastrophic for chained 3x3 transition products."""
+        Always full precision: a float32 matmul on a GPU may otherwise run
+        in TF32 (about three decimal digits), which is catastrophic for
+        chained 3x3 transition products."""
         import jax
 
         o = C.of(o)

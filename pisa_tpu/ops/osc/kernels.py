@@ -1,17 +1,17 @@
 """
-Three-flavor matter-oscillation propagation, TPU-native.
+Three-flavor matter-oscillation propagation in XLA.
 
 Rebuild of the reference prob3 kernels
 (``pisa/stages/osc/prob3numba/numba_osc_kernels.py:122,349,535,606,688,835``;
 originally after Wendell's Prob3++ / Barger et al.) as pure JAX functions.
 
-TPU-first design decisions:
+Design decisions:
 
 - **Structure-of-arrays layout**: a batched 3x3 complex matrix is a
   :class:`C` split-complex (re, im) pair of ``(3, 3, N)`` arrays with the
-  grid/event batch on the trailing (lane) axis, so the VPU runs at full
-  lane width; the naive ``(N, 3, 3)`` layout pads the 3-wide trailing dims
-  to 128 lanes and wastes ~40x of the machine. Matrix products are unrolled
+  grid/event batch on the trailing axis, so every elementwise op runs over
+  the long, contiguous point axis rather than 3-wide trailing dims. Matrix
+  products are unrolled
   over the contraction index only (3 broadcasted complex multiply-adds on
   ``(3, 3, N)`` blocks), keeping the HLO op count ~4x smaller than a fully
   scalarized 3x3 nest — which is what keeps XLA compile times in seconds
@@ -19,10 +19,10 @@ TPU-first design decisions:
   Element-level formulas (eigenvalues) operate on zero-copy ``(N,)`` slices
   of the stacked arrays. The python ``Mat`` (3x3 nest of C) helpers remain
   for API-compat/test entry points.
-- split (re, im) real arithmetic throughout: the TPU backend supports no
-  complex dtypes.
+- split (re, im) real arithmetic throughout: no complex dtype reaches a
+  kernel.
 - the per-event/per-layer numba loops become (a) ONE batched transition-
-  matrix computation with the layer axis folded into the lane axis — the
+  matrix computation with the layer axis folded into the point axis — the
   expensive eigenvalue/amplitude algebra appears exactly once in the HLO —
   followed by (b) a cheap ``lax.scan`` over the layer axis for the ordered
   chain product (zero-length padding slots act as identity). This replaces
@@ -34,7 +34,7 @@ TPU-first design decisions:
   vacuum-matched ordering, scale-normalized (the raw coefficients underflow
   fp32 at TeV energies; the reference escapes via numba's float64 promotion
   of math.* calls); Cardano closed form for the non-Hermitian decay case
-  (no TPU eig; the Barger amplitude is permutation-symmetric so eigenvalue
+  (no batched eig; the Barger amplitude is permutation-symmetric so eigenvalue
   order is irrelevant).
 - differentiable w.r.t. (dm, mix, mat_pot, mat_decay, lri_pot) for analytic
   template gradients.
@@ -204,12 +204,9 @@ def _dms_soa(energy, H, dm_vac):
     return _dms_soa_scalars(energy, H, dm_vac[0, 0], dm_vac[1, 0], dm_vac[2, 0])
 
 
-def _dms_soa_scalars(energy, H, dm00, dm10, dm20, atan2=jnp.arctan2):
+def _dms_soa_scalars(energy, H, dm00, dm10, dm20):
     """`_dms_soa` with the vacuum mass-splitting column passed as three
-    scalars — the form consumed inside the Pallas chain kernel, where small
-    parameters arrive through SMEM rather than as a (3, 3) array (`atan2`
-    is injectable because Mosaic has no atan2 lowering; the Pallas path
-    substitutes a <2e-9-accurate polynomial)."""
+    scalars."""
     dtype = H[0][0].re.dtype
 
     # scale-normalize: raw char-poly intermediates underflow fp32 at TeV
@@ -273,8 +270,8 @@ def _dms_soa_scalars(energy, H, dm00, dm10, dm20, atan2=jnp.arctan2):
     )
     tmp_v = jnp.maximum(p_v**3 - q_v**2, 0.0)
 
-    res = atan2(jnp.sqrt(tmp), q) / 3.0
-    res_v = atan2(jnp.sqrt(tmp_v), q_v) / 3.0
+    res = jnp.arctan2(jnp.sqrt(tmp), q) / 3.0
+    res_v = jnp.arctan2(jnp.sqrt(tmp_v), q_v) / 3.0
     a = 2.0 / 3.0 * jnp.pi
     b = 2.0 / 3.0 * jnp.sqrt(p)
     b_v = 2.0 / 3.0 * jnp.sqrt(p_v)
@@ -554,7 +551,6 @@ def _osc_probs_layers_jit(
     distances,
     decay_flag=False,
     chain_map=None,
-    chain_order=None,
     slot_index=None,
 ):
     """Oscillation probabilities through a chain of matter layers, batched
@@ -563,7 +559,7 @@ def _osc_probs_layers_jit(
     With `chain_map` given, `densities`/`distances` hold only the UNIQUE
     (N, Lu) layer pairs of each chain and ``chain_map`` (N, L) int32 maps
     chain position -> unique slot (see
-    :func:`pisa_tpu.ops.osc.layers.dedup_layers`) — the TPU analog of the
+    :func:`pisa_tpu.ops.osc.layers.dedup_layers`) — the analog of the
     reference's in-kernel layer cache: the expensive transition algebra runs
     over ~half the slots, the ordered product gathers per step.
 
@@ -605,17 +601,6 @@ def _osc_probs_layers_jit(
     densities = jnp.asarray(densities)
     distances = jnp.asarray(distances)
 
-    if not decay_flag and chain_map is None:
-        mode = _pallas_mode()
-        if mode is not None:
-            from pisa_tpu.ops.osc.pallas_chain import osc_probs_layers_pallas
-
-            return osc_probs_layers_pallas(
-                dm_vac, U, mat_pot, lri_pot, nubar, energy, densities,
-                distances, interpret=(mode == "interpret"),
-                order=chain_order, slot_index=slot_index,
-            )
-
     return _osc_probs_xla(
         dm_vac, U, mat_pot, mat_decay, lri_pot, nubar, energy, densities,
         distances, decay_flag=decay_flag, chain_map=chain_map,
@@ -640,7 +625,6 @@ def osc_probs_layers(
     distances,
     decay_flag=False,
     chain_map=None,
-    chain_order=None,
     slot_index=None,
 ):
     """Public entry: see :func:`_osc_probs_layers_jit` for semantics (the
@@ -706,61 +690,8 @@ def osc_probs_layers(
     return _osc_probs_layers_jit(
         dm_vac, mix, mat_pot, mat_decay, lri_pot, nubar, energy, densities,
         distances, decay_flag=decay_flag, chain_map=chain_map,
-        chain_order=chain_order, slot_index=slot_index,
+        slot_index=slot_index,
     )
-
-
-# Whether 'auto' grad mode uses the in-kernel forward-mode (JVP) backward
-# on the Pallas path (interpret-mode semantics pinned by
-# tests/test_pallas_chain.py::test_fwdgrad_values_and_gradients).
-# History: on 2026-08-18 the tangent kernel Mosaic-compiled standalone but
-# failed lowering at flagship shapes ("Unimplemented primitive ...
-# dynamic_slice" inside the fori body) — the tangent kernel loaded the
-# geometry as VALUES and dynamic-sliced them per layer, which Mosaic has
-# no lowering for. Resolved 2026-08-19 by switching the tangent kernel to
-# per-layer REF loads exactly like the primal (zero-tangent ref loads pass
-# through jax.jvp): it now compiles at flagship shapes and measures
-# 57-58 ms per flagship value_and_grad vs 200-708 ms for the XLA reverse
-# path on the same chip, with max relative gradient difference 2e-6
-# (head-to-head run recorded in BASELINE_MEASURED.md). Default is
-# therefore the JVP path; set PISA_TPU_OSC_GRAD=xla to opt out.
-PALLAS_JVP_AUTO = True
-
-
-def osc_grad_mode():
-    """Gradient-path selector for the Pallas primal: 'jvp' (K in-kernel
-    forward-mode tangents at the physics-scalar boundary) or 'xla'
-    (reverse mode through the XLA formulation). Env `PISA_TPU_OSC_GRAD`:
-    'auto' (default), 'jvp', 'xla'."""
-    import os
-
-    mode = os.environ.get("PISA_TPU_OSC_GRAD", "auto").lower()
-    if mode == "auto":
-        return "jvp" if PALLAS_JVP_AUTO else "xla"
-    return mode
-
-
-def _pallas_mode():
-    """Select the Pallas chain-kernel mode from `PISA_TPU_OSC_PALLAS`:
-    'auto' (default; compiled kernel iff the default backend is TPU),
-    '0'/'off' (never), '1'/'on' (TPU-compiled, else interpreter — for
-    CPU-side validation), 'interpret' (always interpreter)."""
-    import os
-
-    mode = os.environ.get("PISA_TPU_OSC_PALLAS", "auto").lower()
-    if mode in ("0", "off", "false", "no"):
-        return None
-    if mode == "interpret":
-        return "interpret"
-    try:
-        backend = jax.default_backend()
-    except Exception:
-        return None
-    if backend == "tpu":
-        return "compiled"
-    if mode in ("1", "on", "true", "yes", "force"):
-        return "interpret"
-    return None
 
 
 def _osc_probs_xla(
@@ -777,8 +708,7 @@ def _osc_probs_xla(
     chain_map=None,
     slot_index=None,
 ):
-    """XLA (lax.scan) implementation over normalized inputs; also serves as
-    the differentiation path for the Pallas kernel's custom VJP.
+    """XLA (lax.scan) implementation over normalized inputs.
 
     With `slot_index` (host-precomputed flat indices of the distance > 0
     slots), the transition algebra runs over a compacted (M_real,) batch
@@ -799,7 +729,7 @@ def _osc_probs_xla(
     eye = _EYE3.astype(energy.dtype)
 
     # (1) ALL layer transition matrices in ONE batched call: (layer, point)
-    # pairs fold into a single lane axis of size L*N, so the eigenvalue /
+    # pairs fold into a single point axis of size L*N, so the eigenvalue /
     # Barger-amplitude algebra is traced exactly once regardless of chain
     # length (a python unroll over layers compiles in minutes).
     e_flat = jnp.broadcast_to(energy, (n_layers, n_pts)).reshape(-1)
@@ -843,7 +773,7 @@ def _osc_probs_xla(
             jnp.where(keep, T.re, eye[..., None]),
             jnp.where(keep, T.im, jnp.zeros((), dtype=energy.dtype)),
         )
-    # re-split the lane axis into a leading (L,) scan axis: (L, 3, 3, N)
+    # re-split the point axis into a leading (L,) scan axis: (L, 3, 3, N)
     T_stack = C(
         T.re.reshape(3, 3, n_layers, n_pts).transpose(2, 0, 1, 3),
         T.im.reshape(3, 3, n_layers, n_pts).transpose(2, 0, 1, 3),

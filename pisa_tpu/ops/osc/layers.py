@@ -298,7 +298,7 @@ class Layers:
 
 def dedup_layers(densities, distances):
     """Collapse each padded layer chain to its unique (density, distance)
-    pairs plus an index chain — the TPU analog of the reference kernel's
+    pairs plus an index chain — the analog of the reference kernel's
     in-loop layer cache (``numba_osc_kernels.py:224-271``): chords traverse
     each shell twice (down/up) with identical segment properties, so only
     ~half the transition matrices are distinct.
@@ -320,7 +320,7 @@ def dedup_layers(densities, distances):
     # Mirrored down/up segments of the same shell can differ by 1 ulp (their
     # lengths come from differently-ordered subtractions), so the MATCHING
     # key is quantized to float32 — the kernel computes in FTYPE (fp32 on
-    # TPU) anyway; the stored values keep full precision.
+    # an accelerator) anyway; the stored values keep full precision.
     key = (
         densities.astype(np.float32).astype(np.complex128)
         + 1j * distances.astype(np.float32)

@@ -1,61 +1,58 @@
 """
-Pallas TPU kernel for the matter-oscillation layer-chain propagation.
+GPU kernel (Pallas, Triton route) for the matter-oscillation layer chain.
 
-This is the speed-of-light implementation of the hot path in
-:func:`pisa_tpu.ops.osc.kernels.osc_probs_layers` (cf. reference
-``pisa/stages/osc/prob3numba/numba_osc_kernels.py:122`` —
-``osc_probs_layers_kernel``): for every grid point / event, build the
-per-layer transition amplitude (matter Hamiltonian -> analytic eigenvalues ->
-Barger et al. eq. 10) and accumulate the ordered chain product, then rotate
-to the flavor basis and take squared magnitudes.
+The hot path of the standard three-flavour oscillation stage (cf. reference
+``pisa/stages/osc/prob3numba/numba_osc_kernels.py:122`` --
+``osc_probs_layers_kernel``, which the reference also runs as a per-thread
+CUDA kernel): for every grid point, build each Earth layer's transition
+amplitude (matter Hamiltonian -> analytic eigenvalues -> Barger et al.
+eq. 10), accumulate the ordered chain product, rotate to the flavour basis
+and take squared magnitudes.
 
-Why Pallas: the XLA formulation materializes dozens of ``(L, 3, 3, N)``
-split-complex intermediates in HBM (~20 GB of traffic per IceCube-3y
-template, measured via XLA cost analysis), because the layer x matrix-entry
-algebra is too branchy for XLA to fuse into one loop. Here the whole
-per-layer algebra lives in registers/VMEM: HBM traffic is exactly the inputs
-(energy, per-layer densities/distances) plus the ``(3, 3)`` probability
-output per point.
+Why a kernel: the XLA formulation (:func:`pisa_tpu.ops.osc.kernels.
+_osc_probs_xla`) materialises ``(L, 3, 3, N)`` split-complex intermediates
+in device memory, and its gradient is reverse mode through the layer scan.
+Here one thread owns one point: the whole per-layer algebra stays in
+registers, device-memory traffic is the inputs plus the ``(2, 3)``
+probability rows per point, and gradients are forward-mode tangents (one
+launch per *free* oscillation parameter).
 
-The kernel is also *algebraically* restructured relative to the XLA path
-(identical math, fewer operations — the kernel is VPU-issue-bound, not
-bandwidth-bound):
+Layout, chosen for the card:
 
-- **everything runs in the mass basis.** The per-layer similarity transform
-  ``U^dagger H U`` of the XLA/reference path disappears: the vacuum term is
-  the diagonal ``diag(0, dm21, dm31)/2E`` by construction, and the matter /
-  LRI terms become *constant* 3x3 matrices ``M_eff = U^dagger M U`` /
-  ``L_eff`` precomputed outside the kernel, so the per-layer Hamiltonian is
-  ``H = diag/2E + a(rho) * M_eff + L_eff`` — ~50 VPU ops instead of two 3x3
-  complex matrix products. Eigenvalues are basis-invariant, and the final
-  rotation to the flavor basis happens once per block, not once per layer.
-  Folding the nubar sign into ``M_eff``/``L_eff`` also makes the kernel
-  itself nubar-independent.
-- **Hermitian triangle storage**: H and H^2 are Hermitian, so only the 3
-  real diagonals + 3 complex upper entries are computed.
-- **Barger amplitude via shared spectral projectors**: eq. 10's three
-  ``(H - m_a)(H - m_b)`` matrix products commute and are Hermitian, so only
-  their triangles are formed, with the cross terms (``H01*H12`` etc.) and
-  off-diagonal norms computed once and shared by all three — ~100 VPU ops
-  instead of three full 3x3 complex matrix products, while keeping the
-  eigenvalue differences subtracted before any multiplication (numerically
-  safe at near-degenerate eigenvalues, unlike an
-  ``alpha_0 I + alpha_1 H + alpha_2 H^2`` expansion).
-- **layer-invariant hoisting**: the vacuum-eigenvalue branch of the
-  vacuum-matched ordering (``get_dms``'s ``m_v`` triple and the argmin
-  selection masks) does not depend on the layer, so it is computed once per
-  block, not once per layer.
-- small physics parameters arrive packed in one SMEM vector; the point
-  batch is laid out 2-D ``(rows, 128)`` with all intermediates as separate
-  ``(BLOCK_ROWS, 128)`` registers — no 3-wide sublane padding anywhere.
-- Mosaic has no atan2/atan lowering, so the eigenvalue formulas use a
-  degree-19 odd minimax polynomial (max error 1.8e-9, below fp32 eps).
+- 1-D blocks of ``BLOCK`` points; geometry in layer-major ``(L, N)`` slabs,
+  so each layer's load is coalesced across a block.
+- points are sorted by chain length at setup, so the points of a block
+  (and of a warp) share the layer-loop trip count; each block reads its
+  own bound from an int32 array (most chains are far shorter than the
+  padded layer count: 2 slots for the downgoing sky vs ~24 through the
+  core; cf. the reference's in-kernel layer cache,
+  ``numba_osc_kernels.py:224-271``).
+- sorted blocks are interleaved in ``MESH_GROUPS`` groups, so any 1/2/4/8-way
+  split of the point axis (``shard_map`` over a device mesh) gets an equal
+  mix of short and long chains.
+- both neutrino signs run in one launch on a leading grid axis (the kernel
+  is sign-independent: the sign is folded into the packed parameters).
+- the 57 packed physics scalars (padded to ``PARAM_SLOTS``) are plain loads.
+- the layer loop is not unrolled: building two layers' transition matrices
+  per iteration measured slower for the tangent launches (register
+  pressure) and no faster for the primal (PERF.md).
 
-Differentiation: ``pallas_call`` has no automatic VJP, so the public entry
-:func:`osc_probs_layers_pallas` wires a ``jax.custom_vjp`` whose backward
-pass differentiates the (mathematically identical) XLA implementation. The
-forward/primal (the minimizer's per-iteration template) runs the Pallas
-kernel; gradient fits pay the XLA path only inside ``jax.grad``.
+Algebra (identical math to the XLA path, fewer operations):
+
+- **mass basis.** The vacuum term is ``diag(0, dm21, dm31)/2E``; the matter
+  and LRI terms are constant matrices ``M_eff = U^dagger M U`` /
+  ``L_eff`` packed outside the kernel, so the per-layer Hamiltonian is
+  ``H = diag/2E + a(rho) M_eff + L_eff``. The rotation to the flavour
+  basis happens once per point, not once per layer.
+- **Hermitian triangles**: only the 3 real diagonals and 3 complex upper
+  entries of H and the projector products are formed.
+- **shared spectral projectors with a partition of unity**:
+  ``T = I + (e^{i ar1} - 1) inv1 Pr1 + (e^{i ar2} - 1) inv2 Pr2``, with the
+  eigenvalue differences subtracted before any multiplication.
+- the vacuum-matched eigenvalue ordering is layer-invariant and computed
+  once per point.
+- only the nu_e / nu_mu initial states are propagated; the tau row of the
+  probability matrix follows from double stochasticity.
 """
 
 from __future__ import annotations
@@ -67,7 +64,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
+from jax.sharding import PartitionSpec as P
 
 from pisa_tpu.ops.cplx import C
 from pisa_tpu.ops.osc.kernels import (
@@ -78,74 +76,48 @@ from pisa_tpu.ops.osc.kernels import (
 )
 
 __all__ = [
-    "osc_probs_layers_pallas",
-    "osc_probs_layers_pallas_fwdgrad",
-    "osc_probs_layers_pallas_fwdgrad_prepared",
+    "osc_probs_planar",
     "prepare_chain_geometry",
-    "chain_probs_pallas",
-    "chain_probs_pallas_prepared",
-    "chain_tangent_pallas",
+    "target_platform",
+    "use_chain_kernel",
 ]
 
-import os as _os
-
-LANES = 128
-# points per grid step = BLOCK_ROWS * LANES; overridable for tuning sweeps.
-# Swept on TPU v5e at flagship geometry (sorted chains). Sequential
-# single-propagation launches — the fit-loop / headline access pattern —
-# measure 8 -> 1.103, 16 -> 1.217, 32 -> 1.207 ms/propagation
-# (2026-08-19, prepared-geometry scan probe): smaller blocks keep
-# per-block chains homogeneous so the dynamic layer bound trims more
-# padding. Re-swept 2026-08-21 after the partition-of-unity restructure:
-# 8x2 0.618 vs 16x4 0.615 ms — a wash at 20% fewer executed layer steps
-# for 8x2 (299k vs 360k), so 8 stays the default.
-BLOCK_ROWS = int(_os.environ.get("PISA_TPU_OSC_BLOCK_ROWS", "8"))
-
-# Layer-loop unroll factor: the per-layer transition matrix T is
-# independent across layers (only the state product v <- T v is
-# sequential), and one (BLOCK_ROWS=8, 128) array is exactly one fp32
-# vreg — so the un-unrolled loop issues one long serial dependency chain
-# (divides/sqrt/trig latencies stall the VPU; measured ~3.4k cycles per
-# ~600-instruction layer step). Computing UNROLL layers' T matrices per
-# iteration gives Mosaic independent DAGs to interleave. Geometry layer
-# slabs are padded to a multiple of 4 (supports 1/2/4; trailing dx=0
-# slots act as identity), so the bound rounding never reads OOB.
-UNROLL = int(_os.environ.get("PISA_TPU_OSC_UNROLL", "2"))
-assert UNROLL in (1, 2, 4), "PISA_TPU_OSC_UNROLL must be 1, 2 or 4"
-
-# atan(t)/t on [0, 1] as a degree-9 polynomial in t^2 (Chebyshev-node
-# least-squares fit; max abs error 1.8e-9 < fp32 eps).
-_ATAN_COEFS = (
-    9.999999975460e-01,
-    -3.333328229551e-01,
-    1.999823064038e-01,
-    -1.426157368029e-01,
-    1.094019896514e-01,
-    -8.372063948085e-02,
-    5.746355785006e-02,
-    -3.071750890693e-02,
-    1.068071944801e-02,
-    -1.743701144344e-03,
-)
+# Points and warps per program, swept once on the card at flagship shapes
+# (benchmarks/osc_kernel_probe.py --sweep; numbers in PERF.md).
+BLOCK = 64
+NUM_WARPS = 2
+# sorted blocks are interleaved in this many groups (any mesh whose size
+# divides it gets balanced shards of the point axis)
+MESH_GROUPS = 8
+N_PARAMS = 57
+PARAM_SLOTS = 64  # N_PARAMS padded to a power of two
 
 
-def _atan2_pos(y, x):
-    """atan2(y, x) for y >= 0 (range [0, pi]), branch-free polynomial.
-    Matches the conventions the eigenvalue code relies on, including
-    atan2(0, 0) = 0."""
-    ax = jnp.abs(x)
-    hi = jnp.maximum(y, ax)
-    lo = jnp.minimum(y, ax)
-    t = lo / jnp.maximum(hi, jnp.asarray(1e-37, dtype=y.dtype))
-    t2 = t * t
-    p = jnp.asarray(_ATAN_COEFS[-1], dtype=y.dtype)
-    for c in _ATAN_COEFS[-2::-1]:
-        p = p * t2 + c
-    a = t * p
-    a = jnp.where(y > ax, jnp.pi / 2 - a, a)
-    return jnp.where(x < 0, jnp.pi - a, a)
+def target_platform():
+    """The platform a computation traced now is compiled for: the default
+    device's (``jax.default_device``, as host-routed fits set it), else the
+    default backend."""
+    dev = jax.config.jax_default_device
+    if dev is None:
+        return jax.default_backend()
+    return dev if isinstance(dev, str) else dev.platform
 
 
+def use_chain_kernel(platform, dtype, standard_physics):
+    """Whether the oscillation stage runs this kernel: only compiled for a
+    GPU, in float32, for standard three-flavour matter physics (no decay,
+    NSI, LRI or layer dedup). Everything else runs the XLA formulation."""
+    return (
+        platform == "gpu"
+        and jnp.dtype(dtype) == jnp.float32
+        and bool(standard_physics)
+    )
+
+
+# ---------------------------------------------------------------------------
+# Per-point algebra (pure jnp on (BLOCK,) values; shared by the primal and
+# the in-kernel forward-mode tangent)
+# ---------------------------------------------------------------------------
 def _unpack_params(pv):
     """Packed 57-scalar tuple -> (U, M_eff, L_eff, dm00, dm10, dm20).
 
@@ -167,10 +139,7 @@ def _unpack_params(pv):
 
 
 def _flat12(v):
-    """Two propagated state columns (nested [a][i] of C) -> flat 12-tuple
-    (12 real registers instead of the full 3x3 matrix's 18; the tau row of
-    the probability matrix is reconstructed outside from double
-    stochasticity)."""
+    """Two propagated state columns (nested [a][i] of C) -> flat 12-tuple."""
     return tuple(v[a][i].re for a in range(2) for i in range(3)) + tuple(
         v[a][i].im for a in range(2) for i in range(3)
     )
@@ -184,30 +153,44 @@ def _unflat12(t):
 
 
 def _econ(e):
-    """Energy-derived per-block constants (parameter-independent)."""
+    """Energy-derived per-point constants (parameter-independent)."""
     dtype = e.dtype
     return dict(
         one_over_two_e=0.5 / e,
         two_e=2.0 * e,
         phase_s=-(1.0 / e) * HBAR_C_FACTOR,  # * baseline, applied per layer
         tiny=jnp.asarray(1e-30, dtype=dtype),
-        zeros=jnp.zeros_like(e),
         ones=jnp.ones_like(e),
     )
+
+
+def _cubic_roots(scale, b, c2, res, two_e, dm00):
+    """The three eigenvalues (2E-scaled, shifted by dm00) from the
+    trigonometric solution of the normalised characteristic cubic."""
+    third = 1.0 / 3.0
+    cr, sr = jnp.cos(res), jnp.sin(res)
+    half_sqrt3 = 0.8660254037844386
+    # cos(res +- 2pi/3) via angle addition: 2 transcendentals, not 3
+    return [
+        two_e * (scale * (b * (-0.5 * cr - half_sqrt3 * sr) - c2 * third)
+                 + dm00),
+        two_e * (scale * (b * (-0.5 * cr + half_sqrt3 * sr) - c2 * third)
+                 + dm00),
+        two_e * (scale * (b * cr - c2 * third) + dm00),
+    ]
 
 
 def _vacuum_picks(pv, econ):
     """Vacuum-matched ordering masks for the in-matter eigenvalues
     (cf. kernels._dms_soa_scalars vacuum branch / numba_osc_kernels.py:688).
-    Layer-invariant, and NON-DIFFERENTIABLE by construction (argmin
-    selection) — computed from the primal parameters only."""
+    Layer-invariant, and non-differentiable by construction (argmin
+    selection)."""
     dm00, dm10, dm20 = pv[54], pv[55], pv[56]
     one_over_two_e = econ["one_over_two_e"]
-    two_e = econ["two_e"]
-    tiny = econ["tiny"]
     third = 1.0 / 3.0
     scale_v = jnp.maximum(
-        jnp.maximum(jnp.abs(dm10), jnp.abs(dm20)) * one_over_two_e, tiny
+        jnp.maximum(jnp.abs(dm10), jnp.abs(dm20)) * one_over_two_e,
+        econ["tiny"],
     )
     x = dm10 * one_over_two_e / scale_v
     y = dm20 * one_over_two_e / scale_v
@@ -215,18 +198,9 @@ def _vacuum_picks(pv, econ):
     p_v = x * x + y * y - x * y
     q_v = (x + y) * ((x + y) ** 2 - 4.5 * x * y)
     tmp_v = jnp.maximum(p_v * p_v * p_v - q_v * q_v, 0.0)
-    res_v = _atan2_pos(jnp.sqrt(tmp_v), q_v) * third
+    res_v = jnp.arctan2(jnp.sqrt(tmp_v), q_v) * third
     b_v = (2.0 * third) * jnp.sqrt(p_v)
-    # cos(res +- 2pi/3) via angle addition: 2 transcendentals, not 3
-    cr_v, sr_v = jnp.cos(res_v), jnp.sin(res_v)
-    half_sqrt3 = 0.8660254037844386
-    m_v = [
-        two_e * (scale_v * (b_v * (-0.5 * cr_v - half_sqrt3 * sr_v)
-                            - c2_v * third) + dm00),
-        two_e * (scale_v * (b_v * (-0.5 * cr_v + half_sqrt3 * sr_v)
-                            - c2_v * third) + dm00),
-        two_e * (scale_v * (b_v * cr_v - c2_v * third) + dm00),
-    ]
+    m_v = _cubic_roots(scale_v, b_v, c2_v, res_v, econ["two_e"], dm00)
     # selection masks: m[i] = m_u[argmin_j |dm_vac[i,0] - m_v[j]|]
     picks = []
     for target in (dm00, dm10, dm20):
@@ -250,28 +224,13 @@ def _init_carry(pv, econ):
     )
 
 
-def _layer_step(carry, pv, rho, dx, econ, picks):
-    """One layer transition applied to the flat 12-tuple state carry, as a
-    pure function of (carry, packed parameter scalars) — so the tangent
-    kernels can differentiate it per layer (jax.jvp over the whole chain,
-    or jax.linearize per layer for the shared-primal multi-tangent path).
-    `rho`/`dx` are the layer's (BLOCK_ROWS, LANES) geometry slabs (zero
-    tangent), `econ` the energy constants, `picks` the vacuum-matched
-    ordering masks (non-differentiable)."""
-    T, keep = _layer_T(pv, rho, dx, econ, picks)
-    return _flat12(_apply_T(T, keep, _unflat12(carry)))
-
-
 def _layer_T(pv, rho, dx, econ, picks):
     """One layer's transition matrix: (T, keep) where T is the nested 3x3
     of C (Barger eq. 10 amplitude up to a global phase) and `keep` the
-    dx > 0 mask (zero-length layers act as identity in :func:`_apply_T`).
-    Independent of the propagated state — the unrolled chain loop builds
-    several layers' T matrices as independent DAGs before applying them."""
+    dx > 0 mask (zero-length layers act as identity in :func:`_apply_T`)."""
     _, Me, Le, dm00, dm10, dm20 = _unpack_params(pv)
     one_over_two_e = econ["one_over_two_e"]
     two_e = econ["two_e"]
-    phase_s = econ["phase_s"]
     third = 1.0 / 3.0
 
     a = (0.5 * TWO_SQRT2_GF) * rho
@@ -289,16 +248,14 @@ def _layer_T(pv, rho, dx, econ, picks):
     h22 = Me[2][2].re * a + Le[2][2].re + dm20 * one_over_two_e
 
     # ---- eigenvalues: char-poly coefficients (basis-invariant),
-    # scale-normalized on the coefficients (homogeneity) rather than on
-    # the matrix entries (cf. numba_osc_kernels.py:688) ----
+    # scale-normalised on the coefficients (cf. numba_osc_kernels.py:688)
     n01, n02, n12 = h01.abs2(), h02.abs2(), h12.abs2()
     scale2 = jnp.maximum(
         jnp.maximum(jnp.maximum(h00 * h00, h11 * h11), h22 * h22),
         jnp.maximum(jnp.maximum(n01, n02), n12),
     )
-    # one rsqrt replaces sqrt + divide (the floor guards exact-zero H,
-    # which cannot occur for nonzero mass splittings; 1e-36 stays normal
-    # in fp32 where tiny^2 = 1e-60 would flush to 0)
+    # one rsqrt replaces sqrt + divide (the floor guards exact-zero H;
+    # 1e-36 stays normal in fp32)
     scale2 = jnp.maximum(scale2, jnp.asarray(1e-36, dtype=scale2.dtype))
     inv_s = jax.lax.rsqrt(scale2)
     scale = scale2 * inv_s
@@ -309,9 +266,7 @@ def _layer_T(pv, rho, dx, econ, picks):
         - h01.im * (h12.im * h02.re - h12.re * h02.im)
     )  # Re(H01 H12 conj(H02)) = Re(H01 H12 H20)
     c2 = -(h00 + h11 + h22) * inv_s
-    c1 = (
-        h00 * (h11 + h22) + h11 * h22 - n01 - n02 - n12
-    ) * inv_s2
+    c1 = (h00 * (h11 + h22) + h11 * h22 - n01 - n02 - n12) * inv_s2
     c0 = (
         (h00 * n12 + h11 * n02 + h22 * n01)
         - 2.0 * real_product_a
@@ -323,35 +278,26 @@ def _layer_T(pv, rho, dx, econ, picks):
     tmp = jnp.maximum(
         27.0 * (0.25 * c1 * c1 * (pp - c1) + c0 * (qq + 6.75 * c0)), 0.0
     )
-    res = _atan2_pos(jnp.sqrt(tmp), qq) * third
+    res = jnp.arctan2(jnp.sqrt(tmp), qq) * third
     b = (2.0 * third) * jnp.sqrt(pp)
-    cr, sr = jnp.cos(res), jnp.sin(res)
-    half_sqrt3 = 0.8660254037844386
-    m_u = [
-        two_e * (scale * (b * (-0.5 * cr - half_sqrt3 * sr)
-                          - c2 * third) + dm00),
-        two_e * (scale * (b * (-0.5 * cr + half_sqrt3 * sr)
-                          - c2 * third) + dm00),
-        two_e * (scale * (b * cr - c2 * third) + dm00),
-    ]
+    m_u = _cubic_roots(scale, b, c2, res, two_e, dm00)
     m = []
     for pick1, pick2 in picks:
         best01 = jnp.where(pick1, m_u[1], m_u[0])
         m.append(jnp.where(pick2, m_u[2], best01))
 
     # ---- Barger eq. 10 via spectral projectors over the 2E-scaled
-    # Hamiltonian G: T = sum_k phase_k * (G - m_a)(G - m_b)/denoms.
-    # The two factors commute (polynomials of the same G), so each
-    # product is exactly Hermitian, and the eigenvalue differences are
-    # subtracted BEFORE any multiplication -- unlike the equivalent
-    # alpha0 I + alpha1 G + alpha2 G^2 expansion, which loses ~1e-4 of
-    # precision to G^2 cancellation at near-degenerate eigenvalues ----
+    # Hamiltonian G: the two factors of each (G - m_a)(G - m_b) commute,
+    # so each product is exactly Hermitian, and eigenvalue differences are
+    # subtracted before any multiplication (an alpha0 + alpha1 G +
+    # alpha2 G^2 expansion loses ~1e-4 to cancellation at near-degenerate
+    # eigenvalues) ----
     g00, g11, g22 = h00 * two_e, h11 * two_e, h22 * two_e
     g01 = C(h01.re * two_e, h01.im * two_e)
     g02 = C(h02.re * two_e, h02.im * two_e)
     g12 = C(h12.re * two_e, h12.im * two_e)
 
-    # cross terms and norms shared by all three projector products
+    # cross terms and norms shared by both projector products
     n01g, n02g, n12g = g01.abs2(), g02.abs2(), g12.abs2()
     x01 = g02 * g12.conj()
     x02 = g01 * g12
@@ -376,30 +322,21 @@ def _layer_T(pv, rho, dx, econ, picks):
     d01 = m[0] - m[1]
     d02 = m[0] - m[2]
     d12 = m[1] - m[2]
-    # ONE reciprocal serves both spectral weights:
-    # inv1 = 1/((m1-m0)(m1-m2)) = -d02*r, inv2 = 1/((m2-m0)(m2-m1))
-    # = d01*r with r = 1/(d01*d02*d12).
+    # one reciprocal serves both spectral weights:
+    # inv1 = 1/((m1-m0)(m1-m2)) = -d02*r, inv2 = 1/((m2-m0)(m2-m1)) = d01*r
     r = 1.0 / (d01 * d02 * d12)
     inv1 = -d02 * r
     inv2 = d01 * r
 
-    s = phase_s * dx
+    s = econ["phase_s"] * dx
 
-    # Only phase DIFFERENCES survive |.|^2 of the chain product (the
-    # per-layer global phase e^{i m0 s} factors out of T and the total
-    # product), so T is computed up to e^{i m0 s}. The projectors form a
-    # partition of unity (Pr0*inv0 + Pr1*inv1 + Pr2*inv2 = I), so Barger
-    # eq. 10 collapses to
+    # Only phase differences survive |.|^2 of the chain product, so T is
+    # computed up to the global phase e^{i m0 s}. The projectors form a
+    # partition of unity, so Barger eq. 10 collapses to
     #   T = I + (e^{i ar1} - 1) inv1 Pr1 + (e^{i ar2} - 1) inv2 Pr2
-    # and Pr0 / its denominator are never formed (~1/3 of the projector
-    # and assembly work). Numerically this is no worse than the
-    # three-projector form: the (e^{i ar_k} - 1) factor additionally
-    # cancels the d0k divergence of its weight; the 1/d12 divergence at
-    # m1~m2 still relies on cross-term cancellation between the Pr1 and
-    # Pr2 terms, exactly as before.
+    # and Pr0 is never formed.
     ar1 = -d01 * s  # (m1 - m0) s
     ar2 = -d02 * s  # (m2 - m0) s
-    # phase weights (w1/w2, NOT the char-poly coefficients c1/c2 above)
     w1 = C((jnp.cos(ar1) - 1.0) * inv1, jnp.sin(ar1) * inv1)
     w2 = C((jnp.cos(ar2) - 1.0) * inv2, jnp.sin(ar2) * inv2)
 
@@ -443,185 +380,189 @@ def _apply_T(T, keep, V):
     return newV
 
 
-def _final_probs_flat(carry, pv):
-    """Back to the flavor basis and squared magnitudes, flattened:
-    F[b][a] = (U v_a)[b]; returns the 6-tuple |F|^2 blocks in (a, b)
-    row-major order."""
+def _final_probs(carry, pv):
+    """Back to the flavour basis and squared magnitudes:
+    F[b][a] = (U v_a)[b]; returns nested [a][b] |F|^2."""
     U = _unpack_params(pv)[0]
     V = _unflat12(carry)
-    out = []
-    for a in range(2):
-        for b in range(3):
-            f = (
-                U[b][0] * V[a][0]
-                + U[b][1] * V[a][1]
-                + U[b][2] * V[a][2]
-            )
-            out.append(f.abs2())
-    return tuple(out)
+    return [
+        [
+            (U[b][0] * V[a][0] + U[b][1] * V[a][1] + U[b][2] * V[a][2]).abs2()
+            for b in range(3)
+        ]
+        for a in range(2)
+    ]
 
 
-def _chain_block_math(p, nl, e, dens_get, dist_get):
+def _chain_block_math(pv, nl, e, dens_get, dist_get):
     """Full layer-chain propagation for one block of points, as a pure
-    function of the packed parameter SCALARS — so the tangent kernel can
-    differentiate it with an in-body ``jax.jvp``.
-
-    Parameters: ``p(k)`` returns packed scalar k (see
-    :func:`_unpack_params` for the layout); ``nl`` is the block's
-    layer-loop bound; ``e`` the (BLOCK_ROWS, LANES) energies;
-    ``dens_get(l)``/``dist_get(l)`` return layer l's (BLOCK_ROWS, LANES)
-    slab (a ref load in both the primal and the tangent kernel —
-    zero-tangent ref loads pass through jax.jvp). Returns the nested
-    ``[a][b]`` list of |amplitude|^2 blocks (a = initial nu_e/nu_mu
-    state, b = final flavor)."""
-    pv = tuple(p(k) for k in range(57))
+    function of the packed parameter scalars `pv` (so the tangent kernel
+    can differentiate it with an in-body ``jax.jvp``). ``nl`` is the
+    block's layer-loop bound, ``e`` the (BLOCK,) energies, and
+    ``dens_get(l)`` / ``dist_get(l)`` load layer l's (BLOCK,) slab.
+    Returns nested ``[a][b]`` |amplitude|^2 (a = initial nu_e/nu_mu state,
+    b = final flavour)."""
     econ = _econ(e)
     picks = _vacuum_picks(pv, econ)
 
-    def body(u, carry):
-        # UNROLL independent T builds per iteration (interleavable
-        # dependency chains), then the sequential state products. Reads
-        # past the dynamic bound land on dx == 0 slots (identity) — the
-        # layer dim is padded to a multiple of 4 by _prep_blocks.
-        base = u * UNROLL
-        ts = [
-            _layer_T(pv, dens_get(base + k), dist_get(base + k), econ,
-                     picks)
-            for k in range(UNROLL)
-        ]
-        V = _unflat12(carry)
-        for T, keep in ts:
-            V = _apply_T(T, keep, V)
-        return _flat12(V)
+    def body(layer, carry):
+        T, keep = _layer_T(pv, dens_get(layer), dist_get(layer), econ, picks)
+        return _flat12(_apply_T(T, keep, _unflat12(carry)))
 
-    n_iter = (nl + (UNROLL - 1)) // UNROLL
-    carry = jax.lax.fori_loop(0, n_iter, body, _init_carry(pv, econ))
-    flat = _final_probs_flat(carry, pv)
-    return [[flat[3 * a + b] for b in range(3)] for a in range(2)]
+    carry = jax.lax.fori_loop(0, nl, body, _init_carry(pv, econ))
+    return _final_probs(carry, pv)
 
 
-def _chain_block_math_multitangent(pv, dpvs, nl, e, dens_get, dist_get):
-    """Primal + K simultaneous parameter tangents with a SHARED primal:
-    each layer step is linearized ONCE around the primal carry
-    (``jax.linearize``) and the resulting linear map is applied to all K
-    tangent carries — the primal eigensolve/projector work (the expensive,
-    transcendental-heavy part) is paid once instead of once per tangent
-    direction, and each tangent application is linear arithmetic only.
-
-    ``pv``: 57-tuple of packed parameter scalars; ``dpvs``: list of K
-    57-tuples of tangent scalars. Returns (vals, dvals_list) in the same
-    nested [a][b] layout as :func:`_chain_block_math`."""
-    econ = _econ(e)
-    picks = _vacuum_picks(pv, econ)
-
-    def init_fn(pvt):
-        return _init_carry(pvt, econ)
-
-    carry_p, init_lin = jax.linearize(init_fn, pv)
-    carry_ts = [init_lin(dpv) for dpv in dpvs]
-    k_tangents = len(dpvs)
-
-    def body(layer, flat_all):
-        p_c = flat_all[:12]
-        t_cs = [
-            flat_all[12 * (k + 1):12 * (k + 2)] for k in range(k_tangents)
-        ]
-        rho = dens_get(layer)
-        dx = dist_get(layer)
-
-        def step(c, pvt):
-            return _layer_step(c, pvt, rho, dx, econ, picks)
-
-        p_new, lin = jax.linearize(step, tuple(p_c), pv)
-        t_new = [lin(tuple(t_c), dpv) for t_c, dpv in zip(t_cs, dpvs)]
-        return tuple(p_new) + tuple(x for t in t_new for x in t)
-
-    flat_all = jax.lax.fori_loop(
-        0, nl, body, tuple(carry_p) + tuple(x for t in carry_ts for x in t)
-    )
-    p_final = flat_all[:12]
-    t_finals = [
-        flat_all[12 * (k + 1):12 * (k + 2)] for k in range(k_tangents)
-    ]
-
-    def post(c, pvt):
-        return _final_probs_flat(c, pvt)
-
-    out_p, post_lin = jax.linearize(post, tuple(p_final), pv)
-    out_ts = [
-        post_lin(tuple(t_c), dpv) for t_c, dpv in zip(t_finals, dpvs)
-    ]
-    vals = [[out_p[3 * a + b] for b in range(3)] for a in range(2)]
-    dvals = [
-        [[t[3 * a + b] for b in range(3)] for a in range(2)]
-        for t in out_ts
-    ]
-    return vals, dvals
-
-
-def _chain_kernel(pp_ref, nl_ref, e_ref, dens_ref, dist_ref, out_ref, *,
-                  n_layers):
-    """Primal kernel: thin ref-plumbing wrapper over
-    :func:`_chain_block_math`. ``nl_ref`` (SMEM) holds the per-block
-    layer-loop bound: the longest chain among the block's points (most
-    Earth chains are far shorter than the padded `n_layers` — 2 slots for
-    the downgoing sky vs ~24 through the core — so a dynamic per-block
-    bound skips most of the padding; cf. the reference's in-kernel layer
-    cache, ``numba_osc_kernels.py:224-271``)."""
-    nl = nl_ref[pl.program_id(0), 0]
-    vals = _chain_block_math(
-        lambda k: pp_ref[0, k],
-        nl,
-        e_ref[:],
-        lambda l: dens_ref[l],
-        lambda l: dist_ref[l],
-    )
+# ---------------------------------------------------------------------------
+# Kernels and launch
+# ---------------------------------------------------------------------------
+def _store(out_ref, vals):
     for a in range(2):
         for b in range(3):
-            out_ref[a, b] = vals[a][b]
+            out_ref[a, b, :] = vals[a][b]
 
 
-def _chain_tangent_kernel(
-    pp_ref, dpp_ref, nl_ref, e_ref, dens_ref, dist_ref, dout_ref, *,
-    n_layers,
-):
-    """Forward-mode tangent kernel: d(probs)/dt for one tangent direction
-    of the packed parameter vector, via an IN-BODY ``jax.jvp`` of the same
-    block math the primal kernel runs (dual-number arithmetic compiles to
-    ~2x the primal's VPU work; geometry inputs are closure-captured
-    constants with zero tangent). The jvp is applied to the pure block
-    math, so program_id/ref plumbing stays outside the differentiated
-    function (jax's built-in pallas JVP rule, which cannot handle either,
-    is not involved)."""
-    nl = nl_ref[pl.program_id(0), 0]
-    e = e_ref[:]
-    pvals = tuple(pp_ref[0, k] for k in range(57))
-    dpvals = tuple(dpp_ref[0, k] for k in range(57))
+def _chain_kernel(pp_ref, nl_ref, e_ref, dens_ref, dist_ref, out_ref):
+    """Primal: one block of points for one neutrino sign."""
+    pv = tuple(pp_ref[k] for k in range(N_PARAMS))
+    _store(
+        out_ref,
+        _chain_block_math(
+            pv, nl_ref[...], e_ref[...],
+            lambda l: dens_ref[l, :], lambda l: dist_ref[l, :],
+        ),
+    )
 
-    def fn(pv):
-        # per-layer slabs via REF loads (like the primal kernel), not a
-        # dynamic_slice of a preloaded value: the geometry refs carry zero
-        # tangent, so jax.jvp passes the loads through untouched, and
-        # Mosaic lowers a dynamic ref load where it has no lowering for a
-        # value dynamic_slice inside the fori body (the flagship-shape
-        # compile failure resolved 2026-08-19).
+
+def _tangent_kernel(pp_ref, dpp_ref, nl_ref, e_ref, dens_ref, dist_ref,
+                    dout_ref):
+    """Forward-mode tangent d(probs)/dt along one direction `dpp` of the
+    packed parameters: an in-body ``jax.jvp`` of the primal block math.
+    Geometry loads carry zero tangent."""
+    nl = nl_ref[...]
+    e = e_ref[...]
+    pv = tuple(pp_ref[k] for k in range(N_PARAMS))
+    dpv = tuple(dpp_ref[k] for k in range(N_PARAMS))
+
+    def fn(pvt):
         return _chain_block_math(
-            lambda k: pv[k],
-            nl,
-            e,
-            lambda l: dens_ref[l],
-            lambda l: dist_ref[l],
+            pvt, nl, e, lambda l: dens_ref[l, :], lambda l: dist_ref[l, :]
         )
 
-    _, dvals = jax.jvp(fn, (pvals,), (dpvals,))
-    for a in range(2):
-        for b in range(3):
-            dout_ref[a, b] = dvals[a][b]
+    _, dvals = jax.jvp(fn, (pv,), (dpv,))
+    _store(dout_ref, dvals)
 
 
+def _launch(kernel, params, nl, e, dens, dist, *, interpret):
+    """pallas_call of `kernel` over the prepared (layout-order) geometry.
+    `params`: list of (S, PARAM_SLOTS) packed vectors (one row per
+    neutrino sign). Returns (S, 2, 3, n_pad)."""
+    n_signs = params[0].shape[0]
+    n_layers, n_pad = dens.shape
+    n_blocks = nl.shape[0]
+    block = n_pad // n_blocks
+    pspec = pl.BlockSpec((None, PARAM_SLOTS), lambda s, b: (s, 0))
+    return pl.pallas_call(
+        kernel,
+        out_shape=jax.ShapeDtypeStruct((n_signs, 2, 3, n_pad), e.dtype),
+        grid=(n_signs, n_blocks),
+        in_specs=[pspec] * len(params) + [
+            pl.BlockSpec((None,), lambda s, b: (b,)),
+            pl.BlockSpec((block,), lambda s, b: (b,)),
+            pl.BlockSpec((n_layers, block), lambda s, b: (0, b)),
+            pl.BlockSpec((n_layers, block), lambda s, b: (0, b)),
+        ],
+        out_specs=pl.BlockSpec(
+            (None, 2, 3, block), lambda s, b: (s, 0, 0, b)
+        ),
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(
+            num_warps=NUM_WARPS, num_stages=1
+        ),
+        interpret=interpret,
+        name=kernel.__name__.lstrip("_"),
+    )(*params, nl, e, dens, dist)
+
+
+def _run(kernel, params, geom, *, interpret, mesh, axis_name):
+    """Launch over the whole point axis, or -- with a mesh whose size
+    divides the block interleave -- under ``shard_map`` over `axis_name`,
+    each device running its own contiguous share of the blocks (the
+    kernel is pointwise; without this XLA replicates the custom call)."""
+    args = (geom["nl"], geom["e"], geom["dens"], geom["dist"])
+    run = partial(_launch, kernel, interpret=interpret)
+    n_dev = 1 if mesh is None else mesh.shape[axis_name]
+    if n_dev == 1 or geom["nl"].shape[0] % n_dev:
+        return run(list(params), *args)
+    ax = axis_name
+    return jax.shard_map(
+        lambda ps, *g: run(list(ps), *g),
+        mesh=mesh,
+        in_specs=(
+            tuple(P() for _ in params), P(ax), P(ax), P(None, ax),
+            P(None, ax),
+        ),
+        out_specs=P(None, None, None, ax),
+        check_vma=False,
+    )(tuple(params), *args)
+
+
+# ---------------------------------------------------------------------------
+# Geometry preparation (host, once at stage setup)
+# ---------------------------------------------------------------------------
+def prepare_chain_geometry(energy, densities, distances, block=BLOCK):
+    """Every parameter-independent kernel input, computed once on the host
+    from the static geometry: points sorted by chain length, cut into
+    blocks of `block`, the sorted blocks interleaved in ``MESH_GROUPS``
+    groups, and laid out layer-major.
+
+    Returns a dict of numpy arrays: ``e`` (n_pad,), ``dens``/``dist``
+    (L, n_pad), ``nl`` (n_blocks,) int32 per-block layer bounds, and
+    ``inv`` (n,) int32, the layout position of each original point.
+    Padding points have E = 1 GeV and zero-length chains."""
+    energy = np.asarray(energy)
+    densities = np.asarray(densities)
+    distances = np.asarray(distances)
+    n, n_layers = distances.shape
+    real = distances > 0.0
+    # per-point loop bound: 1 + index of the last nonzero-length layer
+    bound = np.where(
+        real.any(axis=1), n_layers - np.argmax(real[:, ::-1], axis=1), 0
+    )
+    order = np.argsort(bound, kind="stable")
+    n_blocks = max(1, -(-n // (block * MESH_GROUPS))) * MESH_GROUPS
+    n_pad = n_blocks * block
+    # sorted slot j sits in sorted block j // block; block b is placed at
+    # (b % MESH_GROUPS) * (n_blocks // MESH_GROUPS) + b // MESH_GROUPS
+    j = np.arange(n_pad)
+    b = j // block
+    pos = (
+        (b % MESH_GROUPS) * (n_blocks // MESH_GROUPS) + b // MESH_GROUPS
+    ) * block + j % block
+    src = np.full(n_pad, -1, dtype=np.int64)
+    src[pos[:n]] = order
+    inv = np.empty(n, dtype=np.int32)
+    inv[order] = pos[:n]
+    valid = src >= 0
+
+    e = np.ones(n_pad, dtype=energy.dtype)
+    e[valid] = energy[src[valid]]
+    dens = np.zeros((n_layers, n_pad), dtype=densities.dtype)
+    dist = np.zeros((n_layers, n_pad), dtype=distances.dtype)
+    dens[:, valid] = densities[src[valid]].T
+    dist[:, valid] = distances[src[valid]].T
+    bound_pad = np.zeros(n_pad, dtype=np.int32)
+    bound_pad[valid] = bound[src[valid]]
+    nl = bound_pad.reshape(n_blocks, block).max(axis=1).astype(np.int32)
+    return dict(e=e, dens=dens, dist=dist, nl=nl, inv=inv)
+
+
+# ---------------------------------------------------------------------------
+# Physics packing and the differentiable entry point
+# ---------------------------------------------------------------------------
 def _pack_params(U, M_eff, L_eff, dm_vac, dtype):
-    """(1, 57) parameter vector: U(re,im) | M_eff(re,im) | L_eff(re,im) |
-    dm_vac[:, 0]."""
+    """(PARAM_SLOTS,) vector: U(re,im) | M_eff(re,im) | L_eff(re,im) |
+    dm_vac[:, 0] | zero padding."""
     parts = [
         U.re.reshape(-1),
         U.im.reshape(-1),
@@ -630,490 +571,21 @@ def _pack_params(U, M_eff, L_eff, dm_vac, dtype):
         L_eff.re.reshape(-1),
         L_eff.im.reshape(-1),
         jnp.asarray(dm_vac)[:, 0].reshape(-1),
+        jnp.zeros((PARAM_SLOTS - N_PARAMS,)),
     ]
     return jnp.concatenate(
         [jnp.asarray(x, dtype=dtype).reshape(-1) for x in parts]
-    ).reshape(1, -1)
-
-
-def _prep_blocks(energy, densities, distances):
-    """Pad/reshape the point batch into (rows, LANES) blocks and compute
-    per-block dynamic layer bounds. Returns
-    (e2, dens, dist, nl_blocks, rows, grid, n_pad)."""
-    dtype = energy.dtype
-    n = energy.shape[0]
-    # pad the layer dim to a multiple of 4 so every supported UNROLL's
-    # rounded-up loop bound stays in range (padding slots have dx = 0 and
-    # act as identity layers)
-    n_layers = -(-densities.shape[1] // 4) * 4
-    block = BLOCK_ROWS * LANES
-    n_pad = -(-n // block) * block
-    rows = n_pad // LANES
-
-    e2 = jnp.concatenate(
-        [energy, jnp.ones((n_pad - n,), dtype=dtype)]
-    ).reshape(rows, LANES)
-    pad2 = ((0, n_pad - n), (0, n_layers - densities.shape[1]))
-    dens = (
-        jnp.pad(densities, pad2).reshape(rows, LANES, n_layers)
-        .transpose(2, 0, 1)
-    )
-    dist = (
-        jnp.pad(distances, pad2).reshape(rows, LANES, n_layers)
-        .transpose(2, 0, 1)
-    )
-
-    # per-block loop bound: 1 + index of the last nonzero-length layer over
-    # the block's points (0 for all-padding blocks -> identity chain).
-    # `mask` has the ORIGINAL layer width, so the bound is measured against
-    # it — measuring against the padded n_layers inflated every bound by the
-    # pad amount (up to +3 identity-layer iterations per block) and undercut
-    # the dynamic trimming. The result stays <= padded n_layers, so the
-    # UNROLL round-up cannot read out of bounds (padding slots are dx = 0).
-    mask = distances > 0.0
-    nl = jnp.where(
-        mask.any(axis=1),
-        distances.shape[1] - jnp.argmax(mask[:, ::-1], axis=1),
-        0,
-    ).astype(jnp.int32)
-    grid = rows // BLOCK_ROWS
-    nl_blocks = (
-        jnp.pad(nl, (0, n_pad - n)).reshape(grid, block).max(axis=1)
-    ).reshape(grid, 1)
-    return e2, dens, dist, nl_blocks, rows, grid, n_pad
-
-
-def prepare_chain_geometry(energy, densities, distances, order=None):
-    """Precompute EVERY parameter-independent kernel input from the static
-    geometry: the (rows, 128)-blocked energy, the (L, rows, 128) layer
-    slabs, the per-block dynamic layer bounds, and (with `order`) the
-    chain-length sort / unsort permutations.
-
-    The geometry never changes between minimizer iterations, so doing this
-    inside the per-template program (gather-sort of the (N, L) slabs, pads,
-    transposes, an (N,) argsort) is pure per-template waste — measured at
-    a large share of the flagship osc stage's wall-clock. Callers run this
-    once at stage setup (concrete arrays) and feed the result to
-    :func:`chain_probs_pallas_prepared` /
-    :func:`osc_probs_layers_pallas_fwdgrad_prepared`.
-
-    Returns a dict of arrays: ``e2, dens, dist, nl`` (+ ``order``/``inv``
-    int32 when `order` is given). The original point count is NOT encoded
-    (padding obscures it); pass it to the prepared entry points.
-    """
-    energy = jnp.asarray(energy)
-    densities = jnp.asarray(densities)
-    distances = jnp.asarray(distances)
-    geom = {}
-    if order is not None:
-        order = jnp.asarray(order, dtype=jnp.int32)
-        geom["order"] = order
-        geom["inv"] = jnp.argsort(order).astype(jnp.int32)
-        energy = energy[order]
-        densities = densities[order]
-        distances = distances[order]
-    e2, dens, dist, nl_blocks, _rows, _grid, _n_pad = _prep_blocks(
-        energy, densities, distances
-    )
-    geom.update(e2=e2, dens=dens, dist=dist, nl=nl_blocks)
-    return geom
-
-
-def _launch_primal(pvec, e2, dens, dist, nl_blocks, n, *, interpret, raw,
-                   planar=False):
-    """pallas_call of the primal kernel over pre-blocked inputs.
-
-    ``planar=True`` returns the kernel output as-is, reshaped to
-    ``(2, 3, n_pad)`` — (initial state, final flavor, sorted padded
-    points) with the POINT axis last (lane-aligned). The default
-    ``(N, 2, 3)`` form forces a relayout whose 2x3 trailing dims tile-pad
-    to (8, 128) on TPU (~170x wasted lanes on every downstream op;
-    measured 1.3 ms of epilogue + 1.6 ms of projection work per flagship
-    template against ~0.53 ms for the two kernel launches themselves —
-    artifacts/osc_stage_tail_r05.log). Planar consumers index channels
-    first and keep N on the lanes throughout."""
-    dtype = e2.dtype
-    rows = e2.shape[0]
-    n_layers = dens.shape[0]
-    grid = rows // BLOCK_ROWS
-    n_pad = rows * LANES
-
-    out = pl.pallas_call(
-        partial(_chain_kernel, n_layers=n_layers),
-        out_shape=jax.ShapeDtypeStruct((2, 3, rows, LANES), dtype),
-        grid=(grid,),
-        in_specs=[
-            pl.BlockSpec((1, 57), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            # whole bounds vector in SMEM (Mosaic requires SMEM blocks to
-            # cover full array dims); the kernel indexes by program_id
-            pl.BlockSpec(
-                (grid, 1), lambda i: (0, 0), memory_space=pltpu.SMEM
-            ),
-            pl.BlockSpec(
-                (BLOCK_ROWS, LANES), lambda i: (i, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (n_layers, BLOCK_ROWS, LANES), lambda i: (0, i, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (n_layers, BLOCK_ROWS, LANES), lambda i: (0, i, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (2, 3, BLOCK_ROWS, LANES), lambda i: (0, 0, i, 0),
-            memory_space=pltpu.VMEM,
-        ),
-        interpret=interpret,
-    )(pvec, nl_blocks, e2, dens, dist)
-
-    if planar:
-        return out.reshape(2, 3, n_pad)
-    # (2, 3, rows, LANES) -> (N, 2, 3); the kernel propagates only the
-    # nu_e / nu_mu initial states — the tau row follows exactly from
-    # double stochasticity of |unitary|^2 (column sums are 1)
-    p2 = out.reshape(2, 3, n_pad).transpose(2, 0, 1)[:n]
-    if raw:
-        return p2
-    return _tau_epilogue(p2)
-
-
-def chain_probs_pallas(
-    pvec, energy, densities, distances, *, interpret=False, raw=False,
-):
-    """Raw kernel launch: pvec (1,57); energy (N,); densities/distances
-    (N, L). Returns probs (N, 3, 3) (or the raw (N, 2, 3) e/mu-state rows
-    with ``raw=True``; the tau row follows from double stochasticity).
-
-    Each block's layer loop runs only to the longest chain in the block
-    (trailing zero-length slots are skipped entirely); callers that sort
-    points by chain length first (see ``osc_probs_layers_pallas(order=)``)
-    turn that into a ~mean-chain-length trip count."""
-    n = energy.shape[0]
-    e2, dens, dist, nl_blocks, _rows, _grid, _n_pad = _prep_blocks(
-        energy, densities, distances
-    )
-    return _launch_primal(
-        pvec, e2, dens, dist, nl_blocks, n, interpret=interpret, raw=raw
     )
 
 
-def chain_probs_pallas_prepared(pvec, geom, n, *, interpret=False,
-                                raw=False):
-    """Primal launch over :func:`prepare_chain_geometry` output; `n` is
-    the original (pre-padding) point count. Applies the unsort permutation
-    (``geom['inv']``) unless ``raw=True`` (raw output stays in sorted
-    order, as the tangent kernel's does)."""
-    p2 = _launch_primal(
-        pvec, geom["e2"], geom["dens"], geom["dist"], geom["nl"], n,
-        interpret=interpret, raw=True,
-    )
-    if raw:
-        return p2
-    probs = _tau_epilogue(p2)
-    if "inv" in geom:
-        probs = probs[geom["inv"]]
-    return probs
-
-
-def _tau_epilogue(p2):
-    """(N, 2, 3) e/mu-state rows -> (N, 3, 3) with the tau row from double
-    stochasticity (|U|^2 of a unitary has unit column sums)."""
-    tau_row = jnp.maximum(1.0 - p2[:, 0, :] - p2[:, 1, :], 0.0)
-    return jnp.concatenate([p2, tau_row[:, None, :]], axis=1)
-
-
-def chain_tangent_pallas(
-    pvec, dpvec, energy, densities, distances, *, interpret=False
-):
-    """Forward-mode tangent of :func:`chain_probs_pallas` (raw (N, 2, 3)
-    output) for ONE tangent direction `dpvec` of the packed parameters,
-    via the in-body-jvp tangent kernel."""
-    n = energy.shape[0]
-    e2, dens, dist, nl_blocks, _rows, _grid, _n_pad = _prep_blocks(
-        energy, densities, distances
-    )
-    return _launch_tangent(
-        pvec, dpvec, e2, dens, dist, nl_blocks, n, interpret=interpret
-    )
-
-
-def _launch_tangent(pvec, dpvec, e2, dens, dist, nl_blocks, n, *,
-                    interpret=False, planar=False):
-    """pallas_call of the tangent kernel over pre-blocked inputs.
-    ``planar=True`` keeps the kernel's (2, 3, n_pad) channel-first layout
-    (see :func:`_launch_primal`)."""
-    dtype = e2.dtype
-    rows = e2.shape[0]
-    n_layers = dens.shape[0]
-    grid = rows // BLOCK_ROWS
-    n_pad = rows * LANES
-
-    dout = pl.pallas_call(
-        partial(_chain_tangent_kernel, n_layers=n_layers),
-        out_shape=jax.ShapeDtypeStruct((2, 3, rows, LANES), dtype),
-        grid=(grid,),
-        in_specs=[
-            pl.BlockSpec((1, 57), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, 57), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec(
-                (grid, 1), lambda i: (0, 0), memory_space=pltpu.SMEM
-            ),
-            pl.BlockSpec(
-                (BLOCK_ROWS, LANES), lambda i: (i, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (n_layers, BLOCK_ROWS, LANES), lambda i: (0, i, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (n_layers, BLOCK_ROWS, LANES), lambda i: (0, i, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (2, 3, BLOCK_ROWS, LANES), lambda i: (0, 0, i, 0),
-            memory_space=pltpu.VMEM,
-        ),
-        interpret=interpret,
-    )(pvec, dpvec, nl_blocks, e2, dens, dist)
-    if planar:
-        return dout.reshape(2, 3, n_pad)
-    return dout.reshape(2, 3, n_pad).transpose(2, 0, 1)[:n]
-
-
-def _chain_multitangent_kernel(
-    pp_ref, dpp_ref, nl_ref, e_ref, dens_ref, dist_ref, out_ref, dout_ref,
-    *, n_layers, k_tangents,
-):
-    """Primal + K tangents in ONE launch with a SHARED primal
-    (:func:`_chain_block_math_multitangent`): each layer step is
-    linearized once around the primal carry and the linear map applied to
-    all K tangent carries — vs K separate tangent launches each paying
-    the full dual-number recompute of the primal eigensolve."""
-    nl = nl_ref[pl.program_id(0), 0]
-    e = e_ref[:]
-    pv = tuple(pp_ref[0, k] for k in range(57))
-    dpvs = [
-        tuple(dpp_ref[kk, k] for k in range(57))
-        for kk in range(k_tangents)
-    ]
-    vals, dvals = _chain_block_math_multitangent(
-        pv, dpvs, nl, e,
-        lambda l: dens_ref[l],
-        lambda l: dist_ref[l],
-    )
-    for a in range(2):
-        for b in range(3):
-            out_ref[a, b] = vals[a][b]
-            for kk in range(k_tangents):
-                dout_ref[kk, a, b] = dvals[kk][a][b]
-
-
-def _launch_multitangent(pvec, dpvecs, e2, dens, dist, nl_blocks, n, *,
-                         interpret=False, planar=False):
-    """pallas_call of the shared-primal multitangent kernel over
-    pre-blocked inputs. ``dpvecs``: (K, 57). Returns (p2, dp2) raw
-    (pre-tau-row) outputs of shapes (N, 2, 3) and (K, N, 2, 3), or the
-    channel-first (2, 3, n_pad) / (K, 2, 3, n_pad) forms with
-    ``planar=True`` (see :func:`_launch_primal`)."""
-    dtype = e2.dtype
-    rows = e2.shape[0]
-    n_layers = dens.shape[0]
-    grid = rows // BLOCK_ROWS
-    n_pad = rows * LANES
-    k_tangents = int(dpvecs.shape[0])
-
-    out, dout = pl.pallas_call(
-        partial(
-            _chain_multitangent_kernel,
-            n_layers=n_layers,
-            k_tangents=k_tangents,
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((2, 3, rows, LANES), dtype),
-            jax.ShapeDtypeStruct((k_tangents, 2, 3, rows, LANES), dtype),
-        ),
-        grid=(grid,),
-        in_specs=[
-            pl.BlockSpec((1, 57), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec(
-                (k_tangents, 57), lambda i: (0, 0),
-                memory_space=pltpu.SMEM,
-            ),
-            pl.BlockSpec(
-                (grid, 1), lambda i: (0, 0), memory_space=pltpu.SMEM
-            ),
-            pl.BlockSpec(
-                (BLOCK_ROWS, LANES), lambda i: (i, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (n_layers, BLOCK_ROWS, LANES), lambda i: (0, i, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (n_layers, BLOCK_ROWS, LANES), lambda i: (0, i, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=(
-            pl.BlockSpec(
-                (2, 3, BLOCK_ROWS, LANES), lambda i: (0, 0, i, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (k_tangents, 2, 3, BLOCK_ROWS, LANES),
-                lambda i: (0, 0, 0, i, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ),
-        interpret=interpret,
-    )(pvec, dpvecs, nl_blocks, e2, dens, dist)
-    if planar:
-        return (
-            out.reshape(2, 3, n_pad),
-            dout.reshape(k_tangents, 2, 3, n_pad),
-        )
-    p2 = out.reshape(2, 3, n_pad).transpose(2, 0, 1)[:n]
-    dp2 = dout.reshape(k_tangents, 2, 3, n_pad).transpose(0, 3, 1, 2)[:, :n]
-    return p2, dp2
-
-
-def _probs_pallas_impl(
-    dm_vac, U, mat_pot, lri_pot, energy, densities, distances, order=None,
-    *, nubar, interpret=False,
-):
-    from pisa_tpu.ops.osc.kernels import mat_of, mat_to_C, smat_view
-
-    if order is not None:
-        # evaluate in chain-length-sorted order (per-block dynamic layer
-        # bounds bite), un-permute the result; geometry is static so the
-        # permutation and its inverse are precomputed host-side
-        inv = (
-            np.argsort(order)
-            if isinstance(order, np.ndarray)
-            else jnp.argsort(order)
-        )
-        probs = _probs_pallas_impl(
-            dm_vac, U, mat_pot, lri_pot, energy[order], densities[order],
-            distances[order], None, nubar=nubar, interpret=interpret,
-        )
-        return probs[inv]
-
-    pvec = _pack_from_physics(
-        dm_vac, U, mat_pot, lri_pot, nubar, energy.dtype
-    )
-    return chain_probs_pallas(
-        pvec, energy, densities, distances, interpret=interpret
-    )
-
-
-def _pack_from_physics(dm_vac, U, mat_pot, lri_pot, nubar, dtype):
-    """(dm_vac, U, mat_pot, lri_pot) physics matrices -> packed (1, 57)
-    kernel parameter vector (mass-basis effective matter/LRI terms,
-    nubar sign folded in). Differentiable jnp code."""
-    from pisa_tpu.ops.osc.kernels import mat_of, mat_to_C, smat_view
-
-    sign = 1.0 if nubar > 0 else -1.0
-    Um = smat_view(U)
-    # flavor-basis matter potential per unit a: mat_pot (nu) or
-    # -conj(mat_pot) (nubar), rotated to the mass basis
-    mp = mat_of(mat_pot)
-    if nubar > 0:
-        mp_eff = mp
-    else:
-        mp_eff = [[C(-mp[i][j].re, mp[i][j].im) for j in range(3)]
-                  for i in range(3)]
-    M_eff = mat_to_C(mat_mul(mat_mul(mat_conj_T(Um), mp_eff), Um))
-    # constant LRI term (real, flavor basis) rotated likewise
-    lri = jnp.asarray(lri_pot)
-    Lm = [[C((sign * 1e9) * lri[i, j], jnp.zeros_like(lri[i, j]))
-           for j in range(3)] for i in range(3)]
-    L_eff = mat_to_C(mat_mul(mat_mul(mat_conj_T(Um), Lm), Um))
-
-    return _pack_params(U, M_eff, L_eff, dm_vac, dtype)
-
-
-@partial(jax.custom_vjp, nondiff_argnums=(0, 1))
-def _probs_pallas_vjp(
-    nubar, interpret, dm_vac, U, mat_pot, lri_pot, energy, densities,
-    distances, order, slot_index,
-):
-    return _probs_pallas_impl(
-        dm_vac, U, mat_pot, lri_pot, energy, densities, distances, order,
-        nubar=nubar, interpret=interpret,
-    )
-
-
-def _vjp_fwd(
-    nubar, interpret, dm_vac, U, mat_pot, lri_pot, energy, densities,
-    distances, order, slot_index,
-):
-    out = _probs_pallas_impl(
-        dm_vac, U, mat_pot, lri_pot, energy, densities, distances, order,
-        nubar=nubar, interpret=interpret,
-    )
-    return out, (
-        dm_vac, U, mat_pot, lri_pot, energy, densities, distances, order,
-        slot_index,
-    )
-
-
-def _float0_zeros(x):
-    return np.zeros(np.shape(x), dtype=jax.dtypes.float0)
-
-
-def _vjp_bwd(nubar, interpret, res, g):
-    # Backward through the mathematically-identical XLA implementation,
-    # differentiating ONLY the physics inputs: energy / layer chains are
-    # parameter-independent container data, so their cotangents are never
-    # consumed — requesting them from jax.vjp would drag the whole
-    # phase/eigenvalue backward w.r.t. distances and densities along.
-    # `slot_index` (precomputed host-side) compacts the (layer, point)
-    # batch to the real (non-padding) slots, which cuts the dominant
-    # backward HBM traffic by the padding ratio (~4x on PREM-12 chains).
-    from pisa_tpu.ops.osc.kernels import _osc_probs_xla
-
-    (dm_vac, U, mat_pot, lri_pot, energy, densities, distances, order,
-     slot_index) = res
-    _, vjp = jax.vjp(
-        lambda dm, u, mp, lri: _osc_probs_xla(
-            dm, u, mp, None, lri, nubar, energy, densities, distances,
-            decay_flag=False, chain_map=None, slot_index=slot_index,
-        ),
-        dm_vac, U, mat_pot, lri_pot,
-    )
-    d_dm, d_u, d_mp, d_lri = vjp(g)
-    return (
-        d_dm, d_u, d_mp, d_lri,
-        jnp.zeros_like(energy), jnp.zeros_like(densities),
-        jnp.zeros_like(distances),
-        None if order is None else _float0_zeros(order),
-        None if slot_index is None else _float0_zeros(slot_index),
-    )
-
-
-_probs_pallas_vjp.defvjp(_vjp_fwd, _vjp_bwd)
-
-
-# ------------------------------------------------------------------------
-# Forward-mode gradient path: custom VJP at the physics-scalar boundary.
-# The backward pass runs K in-kernel tangent propagations (dual-number
-# forward mode inside the Pallas kernel) instead of reverse-mode through
-# the XLA layer-chain formulation — removing the backward's (L x N)
-# transition-algebra HBM traffic entirely. Standard 3-flavor path only
-# (matter potential incl. NLO factor and LRI are non-differentiated
-# constants here; NSI/decay fits use the XLA VJP path).
-# ------------------------------------------------------------------------
-
-
-def _build_standard(theta, reparam, nubar, nlo_factor, dtype):
+def _pack_sign(theta, nubar, reparam, nlo_factor, lri_pot, dtype):
     """theta = (theta12, theta13, theta23, deltacp, dm21, dm31) [rad, eV^2]
-    -> (dm_vac, U, mat_pot, lri_pot) for the standard matter path."""
+    -> packed kernel parameters for one neutrino sign (standard matter
+    potential with the NLO factor; `lri_pot`, a constant real 3x3 LRI
+    potential in eV as a flat 9-tuple, or None). The mass-basis matter and
+    LRI terms take the nubar sign, so the kernel itself is
+    sign-independent."""
+    from pisa_tpu.ops.osc.kernels import mat_of, mat_to_C, smat_view
     from pisa_tpu.ops.osc.pmns import (
         dm_matrix,
         pmns_matrix,
@@ -1125,376 +597,103 @@ def _build_standard(theta, reparam, nubar, nlo_factor, dtype):
     mix = fn(jnp.sin(t12), jnp.sin(t13), jnp.sin(t23), dcp)
     U = mix if nubar > 0 else mix.conj()
     dm_vac = dm_matrix(dm21, dm31)
-    mat_pot = C.of(
-        np.diag([float(nlo_factor), 0.0, 0.0]).astype(np.complex128)
-    )
-    lri_pot = jnp.zeros((3, 3), dtype)
-    return dm_vac, U, mat_pot, lri_pot
+    Um = smat_view(U)
+    # flavour-basis matter potential per unit a: diag(nlo, 0, 0) for nu,
+    # its negative for nubar, rotated to the mass basis
+    mp = mat_of(C.of(np.diag([nubar * float(nlo_factor), 0.0, 0.0])))
+    M_eff = mat_to_C(mat_mul(mat_mul(mat_conj_T(Um), mp), Um))
+    # LRI potential [eV] in the Hamiltonian's eV^2/GeV units, sign-flipped
+    # for nubar (cf. kernels.get_H_mat)
+    lri = np.zeros(9) if lri_pot is None else np.asarray(lri_pot)
+    lm = mat_of(C.of((nubar * 1e9) * lri.reshape(3, 3)))
+    L_eff = mat_to_C(mat_mul(mat_mul(mat_conj_T(Um), lm), Um))
+    return _pack_params(U, M_eff, L_eff, dm_vac, dtype)
 
 
-@partial(jax.custom_vjp, nondiff_argnums=(0, 1, 2, 3))
-def _probs_pallas_fwdgrad(
-    nubar, reparam, nlo_factor, interpret, theta, energy, densities,
-    distances, order,
-):
-    dm_vac, U, mat_pot, lri_pot = _build_standard(
-        theta, reparam, nubar, nlo_factor, energy.dtype
-    )
-    return _probs_pallas_impl(
-        dm_vac, U, mat_pot, lri_pot, energy, densities, distances, order,
-        nubar=nubar, interpret=interpret,
-    )
-
-
-def _fwdgrad_fwd(
-    nubar, reparam, nlo_factor, interpret, theta, energy, densities,
-    distances, order,
-):
-    dtype = energy.dtype
-    if order is not None:
-        e_s, dn_s, dx_s = energy[order], densities[order], distances[order]
-    else:
-        e_s, dn_s, dx_s = energy, densities, distances
-    dm_vac, U, mat_pot, lri_pot = _build_standard(
-        theta, reparam, nubar, nlo_factor, dtype
-    )
-    pvec = _pack_from_physics(dm_vac, U, mat_pot, lri_pot, nubar, dtype)
-    # raw (pre-tau-row) primal: saved so the backward can linearize the
-    # clamped tau reconstruction without re-running the kernel
-    p2 = chain_probs_pallas(
-        pvec, e_s, dn_s, dx_s, interpret=interpret, raw=True
-    )
-    probs_s = _tau_epilogue(p2)
-    if order is not None:
-        inv = (
-            np.argsort(order)
-            if isinstance(order, np.ndarray)
-            else jnp.argsort(order)
-        )
-        probs = probs_s[inv]
-    else:
-        probs = probs_s
-    return probs, (theta, energy, densities, distances, order, p2)
-
-
-def _fwdgrad_bwd(nubar, reparam, nlo_factor, interpret, res, g):
-    theta, energy, densities, distances, order, p2 = res
-    dtype = energy.dtype
-    if order is not None:
-        e_s, dn_s, dx_s = energy[order], densities[order], distances[order]
-        g_s = g[order]  # probs = probs_s[argsort(order)] => cot_s = g[order]
-    else:
-        e_s, dn_s, dx_s = energy, densities, distances
-        g_s = g
-
-    def theta_to_pvec(th):
-        dm_vac, U, mat_pot, lri_pot = _build_standard(
-            th, reparam, nubar, nlo_factor, dtype
-        )
-        return _pack_from_physics(dm_vac, U, mat_pot, lri_pot, nubar, dtype)
-
-    pvec = theta_to_pvec(theta)
-    k_dim = theta.shape[0]
-    # one vectorized Jacobian of the scalar pack, not k_dim scalar jvps
-    # (see _fwdgrad_prep_bwd)
-    jac = jax.jacfwd(theta_to_pvec)(theta)  # (1, 57, k_dim)
-    grads = []
-    for k in range(k_dim):
-        dp2 = chain_tangent_pallas(
-            pvec, jac[..., k], e_s, dn_s, dx_s, interpret=interpret
-        )
-        _, dprobs_s = jax.jvp(_tau_epilogue, (p2,), (dp2,))
-        grads.append(jnp.sum(g_s * dprobs_s))
-    dtheta = jnp.stack(grads).astype(theta.dtype)
-    return (
-        dtheta, jnp.zeros_like(energy), jnp.zeros_like(densities),
-        jnp.zeros_like(distances),
-        None if order is None else _float0_zeros(order),
-    )
-
-
-_probs_pallas_fwdgrad.defvjp(_fwdgrad_fwd, _fwdgrad_bwd)
+def _pack(theta, signs, reparam, nlo_factor, lri_pot, dtype):
+    return jnp.stack([
+        _pack_sign(theta, s, reparam, nlo_factor, lri_pot, dtype)
+        for s in signs
+    ])
 
 
 def _zero_cot(x):
     """Cotangent zero matching custom_vjp conventions: float0 for integer
-    leaves (the sort permutations), zeros_like for float leaves."""
+    leaves, zeros_like for float leaves."""
     if jnp.issubdtype(jnp.asarray(x).dtype, jnp.integer):
-        return _float0_zeros(x)
+        return np.zeros(np.shape(x), dtype=jax.dtypes.float0)
     return jnp.zeros_like(x)
 
 
-@partial(jax.custom_vjp, nondiff_argnums=(0, 1, 2, 3, 4, 5))
-def _probs_pallas_fwdgrad_prep(
-    nubar, reparam, nlo_factor, interpret, n, active, theta, geom
-):
-    pvec = _theta_to_pvec(theta, reparam, nubar, nlo_factor,
-                          geom["e2"].dtype)
-    return chain_probs_pallas_prepared(
-        pvec, geom, n, interpret=interpret
-    )
+@partial(jax.custom_vjp, nondiff_argnums=(0, 1, 2, 3, 4, 5, 6, 7))
+def _probs_planar(signs, reparam, nlo_factor, lri_pot, active, mesh,
+                  axis_name, interpret, theta, geom):
+    pvecs = _pack(theta, signs, reparam, nlo_factor, lri_pot,
+                  geom["e"].dtype)
+    out = _run(_chain_kernel, [pvecs], geom, interpret=interpret,
+               mesh=mesh, axis_name=axis_name)
+    return out[..., geom["inv"]]
 
 
-def _theta_to_pvec(theta, reparam, nubar, nlo_factor, dtype):
-    dm_vac, U, mat_pot, lri_pot = _build_standard(
-        theta, reparam, nubar, nlo_factor, dtype
-    )
-    return _pack_from_physics(dm_vac, U, mat_pot, lri_pot, nubar, dtype)
+def _probs_planar_fwd(signs, reparam, nlo_factor, lri_pot, active, mesh,
+                      axis_name, interpret, theta, geom):
+    out = _probs_planar(signs, reparam, nlo_factor, lri_pot, active, mesh,
+                        axis_name, interpret, theta, geom)
+    return out, (theta, geom)
 
 
-def _fwdgrad_prep_fwd(nubar, reparam, nlo_factor, interpret, n, active,
-                      theta, geom):
-    dtype = geom["e2"].dtype
-    pvec = _theta_to_pvec(theta, reparam, nubar, nlo_factor, dtype)
-    # raw (pre-tau-row, still sorted) primal: saved so the backward can
-    # linearize the clamped tau reconstruction without re-running the
-    # kernel
-    p2 = chain_probs_pallas_prepared(
-        pvec, geom, n, interpret=interpret, raw=True
-    )
-    probs_s = _tau_epilogue(p2)
-    probs = probs_s[geom["inv"]] if "inv" in geom else probs_s
-    return probs, (theta, geom, p2)
-
-
-def _fwdgrad_prep_bwd(nubar, reparam, nlo_factor, interpret, n, active,
-                      res, g):
-    theta, geom, p2 = res
-    g_s = g[geom["order"]] if "order" in geom else g
-
-    def theta_to_pvec(th):
-        return _theta_to_pvec(th, reparam, nubar, nlo_factor,
-                              geom["e2"].dtype)
-
-    pvec = theta_to_pvec(theta)
-    k_dim = theta.shape[0]
-    # `active` (static tuple of theta indices, or None = all): tangent
-    # propagations run ONLY for the fit's free oscillation parameters —
-    # the stage knows which of (theta12, theta13, theta23, deltacp, dm21,
-    # dm31) are fixed, and a fixed component's cotangent is discarded by
-    # the upstream stack() vjp anyway. The flagship fit frees 3 of 6,
-    # halving the gradient's kernel work.
-    ks = list(range(k_dim)) if active is None else list(active)
-    grads = {}
-    # Shared-primal multitangent kernel: one launch linearizes each layer
-    # step once and applies the linear map to all K tangents. Measured on
-    # v5e at flagship shapes (2026-08-19) it is NEUTRAL vs K separate
-    # dual-number launches (flagship value_and_grad 44.2 vs 42.4 ms; the
-    # shared-primal savings are offset by the larger live set spilling
-    # VMEM), so the default stays the separate launches; flip on with
-    # PISA_TPU_OSC_MULTITANGENT=1 to re-evaluate on other hardware/K.
-    # ONE vectorized Jacobian of the 57-scalar pack instead of a separate
-    # scalar jvp per direction: the pack is ~600 scalar HLO ops (PMNS +
-    # mass-basis rotations), and per-k jvps were spamming the backward
-    # program with thousands of microsecond-scale scalar ops (measured:
-    # the vg HLO entry held ~1.8k scalar multiplies from this loop alone).
-    if ks:
-        jac = jax.jacfwd(theta_to_pvec)(theta)  # (1, 57, k_dim)
-        dpvec_cols = {k: jac[..., k] for k in ks}
-    if ks and _os.environ.get("PISA_TPU_OSC_MULTITANGENT", "0") in (
-        "1", "on", "true", "yes"
-    ):
-        # ONE shared-primal launch for all K tangent directions: the
-        # per-layer eigensolve is linearized once and the linear map
-        # applied to every tangent, instead of K dual-number launches
-        # each recomputing the primal.
-        dpvecs = jnp.concatenate([dpvec_cols[k] for k in ks], axis=0)
-        _, dp2s = _launch_multitangent(
-            pvec, dpvecs, geom["e2"], geom["dens"], geom["dist"],
-            geom["nl"], n, interpret=interpret,
-        )
-        for i, k in enumerate(ks):
-            _, dprobs_s = jax.jvp(_tau_epilogue, (p2,), (dp2s[i],))
-            grads[k] = jnp.sum(g_s * dprobs_s)
-    else:
-        for k in ks:
-            dp2 = _launch_tangent(
-                pvec, dpvec_cols[k], geom["e2"], geom["dens"],
-                geom["dist"], geom["nl"], n, interpret=interpret,
-            )
-            _, dprobs_s = jax.jvp(_tau_epilogue, (p2,), (dp2,))
-            grads[k] = jnp.sum(g_s * dprobs_s)
-    zero = jnp.zeros((), theta.dtype)
-    dtheta = jnp.stack(
-        [grads.get(k, zero) for k in range(k_dim)]
-    ).astype(theta.dtype)
-    return dtheta, {k: _zero_cot(v) for k, v in geom.items()}
-
-
-_probs_pallas_fwdgrad_prep.defvjp(_fwdgrad_prep_fwd, _fwdgrad_prep_bwd)
-
-
-@partial(jax.custom_vjp, nondiff_argnums=(0, 1, 2, 3, 4, 5))
-def _probs_pallas_fwdgrad_prep_planar(
-    nubar, reparam, nlo_factor, interpret, n, active, theta, geom
-):
-    pvec = _theta_to_pvec(theta, reparam, nubar, nlo_factor,
-                          geom["e2"].dtype)
-    planar = _launch_primal(
-        pvec, geom["e2"], geom["dens"], geom["dist"], geom["nl"], n,
-        interpret=interpret, raw=True, planar=True,
-    )
-    if "inv" in geom:
-        planar = planar[:, :, :n][..., geom["inv"]]
-    else:
-        planar = planar[:, :, :n]
-    return planar
-
-
-def _fwdgrad_prep_planar_fwd(nubar, reparam, nlo_factor, interpret, n,
-                             active, theta, geom):
-    return (
-        _probs_pallas_fwdgrad_prep_planar(
-            nubar, reparam, nlo_factor, interpret, n, active, theta, geom
-        ),
-        (theta, geom),
-    )
-
-
-def _fwdgrad_prep_planar_bwd(nubar, reparam, nlo_factor, interpret, n,
-                             active, res, g):
-    """Planar cotangent (2, 3, n): no tau-epilogue linearization (the
-    planar form carries only the e/mu initial-state rows) and every
-    contraction stays channel-first with the point axis on the lanes."""
+def _probs_planar_bwd(signs, reparam, nlo_factor, lri_pot, active, mesh,
+                      axis_name, interpret, res, g):
+    """One tangent launch per active component of theta (the fit's free
+    oscillation parameters; a fixed component's cotangent is discarded
+    upstream, so it gets zero here)."""
     theta, geom = res
-    # undo the unsort: g over original point order -> sorted order
-    g_s = g[..., geom["order"]] if "order" in geom else g
+    dtype = geom["e"].dtype
 
-    def theta_to_pvec(th):
-        return _theta_to_pvec(th, reparam, nubar, nlo_factor,
-                              geom["e2"].dtype)
+    def pack(th):
+        return _pack(th, signs, reparam, nlo_factor, lri_pot, dtype)
 
-    pvec = theta_to_pvec(theta)
-    k_dim = theta.shape[0]
-    ks = list(range(k_dim)) if active is None else list(active)
+    pvecs = pack(theta)
+    jac = jax.jacfwd(pack)(theta)  # (S, PARAM_SLOTS, 6)
     grads = {}
-    if ks:
-        jac = jax.jacfwd(theta_to_pvec)(theta)  # (1, 57, k_dim)
-        multi = _os.environ.get("PISA_TPU_OSC_MULTITANGENT", "0") in (
-            "1", "on", "true", "yes"
-        )
-        if multi and len(ks) > 1:
-            # shared-primal launch: the per-layer eigensolve is linearized
-            # once and the linear map applied to all K tangents. Neutral
-            # pre-planar (the per-tangent tau-epilogue jvps and (N, 3, 3)
-            # relayouts swamped the savings); re-tuned under the planar
-            # layout via PISA_TPU_OSC_MULTITANGENT=1.
-            dpvecs = jnp.concatenate([jac[..., k] for k in ks], axis=0)
-            _, dps = _launch_multitangent(
-                pvec, dpvecs, geom["e2"], geom["dens"], geom["dist"],
-                geom["nl"], n, interpret=interpret, planar=True,
-            )
-            for i, k in enumerate(ks):
-                grads[k] = jnp.sum(g_s * dps[i][:, :, :n])
-        else:
-            for k in ks:
-                dp = _launch_tangent(
-                    pvec, jac[..., k], geom["e2"], geom["dens"],
-                    geom["dist"], geom["nl"], n, interpret=interpret,
-                    planar=True,
-                )
-                grads[k] = jnp.sum(g_s * dp[:, :, :n])
+    for k in active:
+        dp = _run(_tangent_kernel, [pvecs, jac[..., k]], geom,
+                  interpret=interpret, mesh=mesh, axis_name=axis_name)
+        grads[k] = jnp.sum(g * dp[..., geom["inv"]])
     zero = jnp.zeros((), theta.dtype)
     dtheta = jnp.stack(
-        [grads.get(k, zero) for k in range(k_dim)]
+        [grads.get(k, zero) for k in range(theta.shape[0])]
     ).astype(theta.dtype)
     return dtheta, {k: _zero_cot(v) for k, v in geom.items()}
 
 
-_probs_pallas_fwdgrad_prep_planar.defvjp(
-    _fwdgrad_prep_planar_fwd, _fwdgrad_prep_planar_bwd
-)
+_probs_planar.defvjp(_probs_planar_fwd, _probs_planar_bwd)
 
 
-def osc_probs_layers_pallas_fwdgrad_prepared_planar(
-    theta, nubar, geom, n, reparam=False, nlo_factor=1.0, interpret=False,
-    active=None,
-):
-    """Planar-layout variant of
-    :func:`osc_probs_layers_pallas_fwdgrad_prepared`: returns
-    ``(2, 3, n)`` — (initial state e/mu, final flavor, point) — keeping
-    the POINT axis on the TPU lanes end-to-end. The (N, 3, 3) form's 3x3
-    trailing dims tile-pad to (8, 128), and the resulting relayouts cost
-    ~3 ms/template against ~0.5 ms of kernel time at flagship shapes
-    (artifacts/osc_stage_tail_r05.log); consumers that only need
-    P(e->f)/P(mu->f) rows (the rate fusion) read them as planar[0] /
-    planar[1] with no transpose at all. The tau-initial row (never needed
-    for rates — the atmospheric flux has no tau component) follows from
-    double stochasticity if required."""
-    return _probs_pallas_fwdgrad_prep_planar(
-        int(nubar), bool(reparam), float(nlo_factor), bool(interpret),
-        int(n), None if active is None else tuple(int(i) for i in active),
-        jnp.asarray(theta), geom,
-    )
+def osc_probs_planar(theta, signs, geom, reparam=False, nlo_factor=1.0,
+                     lri_pot=None, active=None, mesh=None, axis_name="data",
+                     interpret=False):
+    """Standard-path oscillation probabilities over prepared geometry
+    (:func:`prepare_chain_geometry`), differentiable in ``theta`` =
+    (theta12, theta13, theta23, deltacp, dm21, dm31) by forward-mode
+    tangents. `lri_pot` (optional, concrete real 3x3 in eV) is a constant
+    long-range-interaction potential; it is not differentiated.
 
-
-def osc_probs_layers_pallas_fwdgrad_prepared(
-    theta, nubar, geom, n, reparam=False, nlo_factor=1.0, interpret=False,
-    active=None,
-):
-    """Standard-path propagation with the forward-mode gradient over
-    PRE-BLOCKED geometry (:func:`prepare_chain_geometry`): the
-    per-template program contains ONLY the 57-scalar physics pack, the
-    Pallas kernel and the unsort gather — no per-template sort gathers,
-    pads, transposes or argsort of the static (N, L) layer slabs. `n` is
-    the original point count.
-
-    `active` (optional tuple of indices into theta): restrict the
-    backward pass's tangent propagations to these components; the others
-    get zero gradient. Callers pass the indices of the FREE oscillation
-    parameters (a fixed parameter's cotangent is discarded upstream)."""
-    return _probs_pallas_fwdgrad_prep(
-        int(nubar), bool(reparam), float(nlo_factor), bool(interpret),
-        int(n), None if active is None else tuple(int(i) for i in active),
-        jnp.asarray(theta), geom,
-    )
-
-
-def osc_probs_layers_pallas_fwdgrad(
-    theta, nubar, energy, densities, distances, reparam=False,
-    nlo_factor=1.0, interpret=False, order=None,
-):
-    """Standard-path propagation with the forward-mode (in-kernel JVP)
-    gradient: differentiable w.r.t. ``theta`` = (theta12, theta13,
-    theta23, deltacp, dm21, dm31); geometry cotangents are zero (see
-    :func:`osc_probs_layers_pallas`)."""
-    return _probs_pallas_fwdgrad(
-        int(nubar), bool(reparam), float(nlo_factor), bool(interpret),
-        jnp.asarray(theta), jnp.asarray(energy), jnp.asarray(densities),
-        jnp.asarray(distances), order,
-    )
-
-
-def osc_probs_layers_pallas(
-    dm_vac, U, mat_pot, lri_pot, nubar, energy, densities, distances,
-    interpret=False, order=None, slot_index=None,
-):
-    """Pallas-accelerated standard-path propagation (no decay, no
-    chain-dedup). `U` is the already-conjugated (for nubar) PMNS C(3,3);
-    differentiable w.r.t. (dm_vac, U, mat_pot, lri_pot) via the XLA VJP.
-
-    .. warning:: cotangents for ``energy``/``densities``/``distances`` are
-       DEFINED AS ZERO on this path: they are parameter-independent
-       geometry in every pipeline use, and skipping them removes the
-       dominant share of the backward pass. Differentiating w.r.t. the
-       geometry itself (e.g. a traceable density scaling) must use the XLA
-       path (``PISA_TPU_OSC_PALLAS=off``), which returns true cotangents.
-
-    `order` (optional int array, a permutation of arange(N)): evaluate the
-    points in this order — callers pass an argsort by chain length so each
-    kernel block holds similar-length chains and the per-block dynamic
-    layer bound bites (see :func:`chain_probs_pallas`). Applied inside the
-    primal; the result is returned in the original point order.
-
-    `slot_index` (optional int array): flat layer-major indices of the
-    non-padding (distance > 0) layer slots, precomputed host-side from the
-    static geometry; forwarded to the XLA backward pass, which then runs
-    the per-layer transition algebra only over real slots."""
-    energy = jnp.asarray(energy)
-    densities = jnp.asarray(densities)
-    distances = jnp.asarray(distances)
-    return _probs_pallas_vjp(
-        int(nubar), bool(interpret), jnp.asarray(dm_vac), U, mat_pot,
-        jnp.asarray(lri_pot), energy, densities, distances, order,
-        slot_index,
+    Returns ``(len(signs), 2, 3, n)``: (neutrino sign, initial state
+    e/mu, final flavour, point), the point axis last. `signs` is a static
+    tuple of +1 (nu) / -1 (nubar). `active` (static tuple of theta indices,
+    default all) limits the tangent launches to those components; the
+    others get zero gradient. With a `mesh`, the launches run under
+    ``shard_map`` over `axis_name`. `interpret=True` runs the kernel body
+    through the Pallas interpreter (for tests off the card)."""
+    if active is None:
+        active = tuple(range(6))
+    geom = {k: jnp.asarray(v) for k, v in geom.items()}
+    if lri_pot is not None:
+        lri_pot = tuple(float(x) for x in np.ravel(lri_pot))
+    return _probs_planar(
+        tuple(int(s) for s in signs), bool(reparam), float(nlo_factor),
+        lri_pot, tuple(int(i) for i in active), mesh, axis_name,
+        bool(interpret),
+        jnp.asarray(theta, dtype=geom["e"].dtype), geom,
     )

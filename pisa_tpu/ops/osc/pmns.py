@@ -5,8 +5,8 @@ JAX-differentiable equivalents of reference ``pisa/stages/osc/osc_params.py``
 (``mix_matrix:175``, ``mix_matrix_reparam:214``, ``dm_matrix:266``), plus an
 ``OscParams`` host-side container mirroring the reference API.
 
-Matrices are built in split (re, im) representation (:class:`C`) since the
-TPU backend supports no complex dtypes; ``*_complex`` helpers materialize
+Matrices are built in split (re, im) representation (:class:`C`), as all
+device-side complex algebra is; ``*_complex`` helpers materialize
 numpy complex arrays for host-side use.
 
 Conventions (reference Appendix B / ``osc_params.py``):

@@ -1,20 +1,20 @@
 """
 3+1 (three active + one sterile) neutrino oscillations through layered
-matter, TPU-native.
+matter, in XLA.
 
 Native replacement for the sterile-neutrino capability the reference gets
 from the external nuSQuIDS engine (``pisa/stages/osc/nusquids.py:36-140``:
 4-flavor propagation, NC matter potential for the sterile state, low-pass
 filtering of fast oscillations). Design:
 
-- **split-complex 4x4 algebra** on stacked ``(4, 4, N)`` arrays (the TPU
-  backend has no complex dtypes; same SoA layout rationale as
+- **split-complex 4x4 algebra** on stacked ``(4, 4, N)`` arrays (same
+  split-complex and SoA layout rationale as
   ``ops/osc/kernels.py``), with einsum-based matmuls — at 4x4 the fully
   unrolled form no longer pays, and einsum keeps the HLO compact.
 - **eigenvalues via the real-symmetric embedding**: a Hermitian H = A + iB
   embeds as the real-symmetric ``[[A, -B], [B, A]]`` whose spectrum is that
   of H duplicated; ``jnp.linalg.eigvalsh`` on the 8x8 embedding is
-  TPU-supported and batched. (The 3-flavor kernel uses the analytic cubic;
+  real-valued and batched. (The 3-flavor kernel uses the analytic cubic;
   the quartic closed form is numerically treacherous, and the sterile path
   is not the hot loop.)
 - **Barger spectral-projector transition matrices** exactly as in the

@@ -2,7 +2,7 @@
 Multi-device evaluation (SURVEY §5.8).
 
 The reference scales template/llh evaluation with a farm of forked TCP
-socket servers (``pisa/utils/llh_server.py:64-120``). The TPU-native
+socket servers (``pisa/utils/llh_server.py:64-120``). The
 replacement is in-program SPMD:
 
 - :func:`default_mesh` — build a 1-D ``jax.sharding.Mesh`` over the
@@ -10,7 +10,7 @@ replacement is in-program SPMD:
 - :meth:`CompiledTemplate.shard` (via :func:`shard_containers`) — shard the
   event/grid axis of every container array across the mesh; XLA then
   partitions the whole compiled template program (oscillation chains, weight
-  ops, histogram scatter-add) over ICI, inserting the collectives (psum for
+  ops, histogram) over the mesh, inserting the collectives (psum for
   the binned reductions, all-gathers for grid->event lookups).
 - :func:`build_batched_objective` — the llh-server use case (parallel MCMC
   walkers / scan points): a vmapped objective whose *batch* axis is sharded

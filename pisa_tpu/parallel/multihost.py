@@ -1,13 +1,13 @@
 """
-Multi-host (multi-process / DCN) distributed evaluation (SURVEY §5.8).
+Multi-host (multi-process) distributed evaluation (SURVEY §5.8).
 
 The reference's only cross-machine story is a farm of TCP llh servers with
-pickle framing (``pisa/utils/llh_server.py:64-120``). The TPU-native design
+pickle framing (``pisa/utils/llh_server.py:64-120``). The design
 scales past one host with ``jax.distributed``: every process joins a
 cluster through a coordinator, contributes its local devices to a GLOBAL
 mesh, and the same SPMD template program runs across all of them — XLA
-routes collectives over ICI within a host/pod slice and over DCN between
-hosts; no pickle, no sockets in user code.
+routes collectives over the links within a host (NVLink between cards)
+and over the network between hosts; no pickle, no sockets in user code.
 
 Usage (one call per process, before any other jax use):
 
@@ -23,7 +23,7 @@ shard on its own devices. For single-process multi-DEVICE use, the plain
 ``pisa_tpu.parallel.default_mesh`` path is unchanged.
 
 Tested end-to-end by ``tests/test_multihost.py``: two separate processes
-form a jax.distributed cluster over localhost (the DCN path on CPU
+form a jax.distributed cluster over localhost (the multi-host path on CPU
 devices), evaluate an oscillation-probability histogram over a globally
 sharded event axis, and reproduce the single-process result exactly.
 """

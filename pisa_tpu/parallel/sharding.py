@@ -115,11 +115,8 @@ def shard_containers(data, mesh, axis_name="data", coord_keys=()):
         for key, per_rep in container._data.items():
             for rep_hash, arr in per_rep.items():
                 if key.startswith("osc_blk_"):
-                    # pre-blocked Pallas kernel geometry: the point axis is
-                    # folded into a (rows, 128) layout, so leading-axis
-                    # sharding would split the wrong dimension; replicate
-                    # (the multi-device path propagates through the XLA
-                    # kernel formulation, which uses the unblocked keys)
+                    # prepared chain-kernel geometry: layer-major slabs and
+                    # per-block bounds, not point-leading arrays; replicate
                     per_rep[rep_hash] = jax.device_put(
                         np.asarray(arr)
                         if not isinstance(arr, jax.Array)
@@ -157,8 +154,8 @@ def shard_stacked_containers(
       out of every reduction.
     - shared binned arrays (``rows=None``, shape ``(size, ...)``) with a
       large (>= `grid_min`) divisible leading axis partition on the
-      grid-point axis, EXCEPT flat-compaction / chain-order index sets and
-      the pre-blocked Pallas geometry (``osc_blk_*``), which replicate; the
+      grid-point axis, EXCEPT flat-compaction index sets and the prepared
+      chain-kernel geometry (``osc_blk_*``), which replicate; the
       container is marked ``grid_sharded`` so the oscillation stage drops
       the compacted-gather formulation (its flat indices are global over
       the (point, layer) space and would force cross-shard gathers) in
@@ -168,12 +165,17 @@ def shard_stacked_containers(
       when it matches a sharded grid size; everything else replicates.
     - cached flat indices / one-hot histogram matrices ``(C, n_pad, ...)``
       partition on the event axis like the arrays they index.
+
+    Each container records the mesh (``mesh``, ``mesh_axis``), so the
+    oscillation stage runs its GPU chain kernel under ``shard_map`` over
+    the replicated geometry (each device propagates its share of the
+    points) instead of letting XLA replicate the kernel call.
     """
     n = mesh.devices.size
     # index sets whose values are GLOBAL flat indices over (point, layer):
     # their consumers must not see sharded operands (prob3._propagate skips
     # them when the container is marked grid_sharded)
-    global_index_keys = ("layer_slot_index", "layer_chain_order")
+    global_index_keys = ("layer_slot_index",)
     for sc in data.containers:
         if not getattr(sc, "is_stacked", False):
             raise ValueError(
@@ -246,6 +248,8 @@ def shard_stacked_containers(
             )
         if shard_grid and grid_sizes:
             sc.grid_sharded = True
+        sc.mesh = mesh
+        sc.mesh_axis = axis_name
         logging.debug(
             "stacked container %s sharded over %d devices (n_pad=%d,"
             " grid sizes %s)", sc.name, n, n_pad, sorted(grid_sizes),
@@ -256,10 +260,16 @@ def build_batched_objective(
     compiled_template, data_dist, metric, mesh=None, axis_name="data",
     priors=True,
 ):
-    """Batched objective over many parameter vectors at once — the TPU
+    """Batched objective over many parameter vectors at once — the
     replacement for the reference's llh-server farm serving emcee walkers
-    (``llh_server.py:64``): one vmapped evaluation, batch axis sharded
-    across the mesh.
+    (``llh_server.py:64``): one vmapped evaluation.
+
+    With a `mesh`, the walker axis is split across its devices: for an
+    unsharded template each device evaluates its share of the walkers
+    under ``shard_map`` over replicated template data (so kernel calls
+    spread too); for a template sharded with
+    :meth:`CompiledTemplate.shard`, XLA partitions the vmapped program over
+    the walker and event axes. B must divide by the mesh size.
 
     Returns a jitted ``(B, n_free) -> (B,)`` callable (minimization sign
     convention, as :meth:`CompiledTemplate.build_objective`).
@@ -275,6 +285,14 @@ def build_batched_objective(
     batched = jax.vmap(raw, in_axes=(0, None, None, None))
     if mesh is None:
         jitted = jax.jit(batched)
+    elif getattr(compiled_template, "mesh", None) is None:
+        jitted = jax.jit(
+            jax.shard_map(
+                batched, mesh=mesh,
+                in_specs=(P(axis_name, None), P(), P(), P()),
+                out_specs=P(axis_name), check_vma=False,
+            )
+        )
     else:
         sharding = NamedSharding(mesh, P(axis_name, None))
         out_sharding = NamedSharding(mesh, P(axis_name))

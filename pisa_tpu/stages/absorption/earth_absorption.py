@@ -4,7 +4,7 @@ Neutrino absorption in the Earth (cf. reference
 ``exp(-rho_int * xsec * N_A)`` with the water-equivalent column depth from
 the Earth-layer chains and per-flavor total (CC+NC) cross-sections.
 
-TPU-first deltas: the column-depth reduction is a fused jnp sum over the
+Deltas from the reference: the column-depth reduction is a fused jnp sum over the
 padded layer axis instead of a per-event guvectorize; cross-sections come
 from the vendored GENIE ``cross_sections/cross_sections.json`` tables
 (log-interpolated) instead of the reference's ROOT file (ROOT is not a

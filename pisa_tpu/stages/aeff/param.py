@@ -5,7 +5,7 @@ group, loaded from JSON files holding either lambda-expression strings
 (evaluated in a restricted {np} namespace) or (x, aeff) tables (linear
 interpolant, zero outside bounds).
 
-TPU-first deltas: flavint-group keys are matched to container names via the
+Deltas from the reference: flavint-group keys are matched to container names via the
 flavint string algebra (the reference requires exact container-name string
 equality); the per-event aeff factors are precomputed at setup (they depend
 only on static truth variables), leaving only the differentiable

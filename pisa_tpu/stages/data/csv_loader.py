@@ -12,11 +12,11 @@ from __future__ import annotations
 import ast
 
 import numpy as np
-import pandas as pd
 
 from pisa_tpu import FTYPE
 from pisa_tpu.core.container import Container
 from pisa_tpu.core.stage import Stage
+from pisa_tpu.utils.fileio import read_csv
 from pisa_tpu.utils.resources import find_resource
 
 __all__ = ["csv_loader", "init_test"]
@@ -91,7 +91,11 @@ class csv_loader(Stage):  # noqa: N801
         )
 
     def setup_function(self):
-        raw = pd.concat([pd.read_csv(f) for f in self.events_file])
+        tables = [read_csv(f) for f in self.events_file]
+        raw = {
+            key: np.concatenate([t[key] for t in tables])
+            for key in tables[0]
+        }
 
         for name in self.output_names:
             container = Container(name, representation="events")
@@ -120,33 +124,37 @@ class csv_loader(Stage):  # noqa: N801
                     mask &= raw["type"] >= 1
                 else:
                     mask &= raw["type"] == 0
-                events = raw[mask]
+                events = {key: col[mask] for key, col in raw.items()}
             else:
                 events = raw
+            n_events = len(next(iter(events.values())))
 
             if self.fraction_events_to_keep is not None:
                 n_keep = max(
                     1,
                     int(
                         round(
-                            self.fraction_events_to_keep * len(events)
+                            self.fraction_events_to_keep * n_events
                         )
                     ),
                 )
                 # deterministic stride (not RNG): identical subsample for
                 # every run/container ordering
-                step = max(1, len(events) // n_keep)
-                events = events.iloc[::step][:n_keep]
+                step = max(1, n_events // n_keep)
+                events = {
+                    key: col[::step][:n_keep] for key, col in events.items()
+                }
+                n_events = len(next(iter(events.values())))
 
-            container["initial_weights"] = np.ones(len(events), dtype=FTYPE)
-            container["weights"] = np.ones(len(events), dtype=FTYPE)
+            container["initial_weights"] = np.ones(n_events, dtype=FTYPE)
+            container["weights"] = np.ones(n_events, dtype=FTYPE)
             for key, col in self.data_dict.items():
                 if isinstance(col, (list, tuple)):
                     container[key] = np.stack(
-                        [events[c].values.astype(FTYPE) for c in col], axis=1
+                        [events[c].astype(FTYPE) for c in col], axis=1
                     )
                 else:
-                    container[key] = events[col].values.astype(FTYPE)
+                    container[key] = events[col].astype(FTYPE)
 
             if self.scale_aeff and "weighted_aeff" in container.keys:
                 container["weighted_aeff"] = (

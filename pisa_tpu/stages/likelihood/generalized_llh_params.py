@@ -4,7 +4,7 @@ Precompute the per-bin inputs of the generalized Poisson-gamma likelihood
 per-bin MC-event counts, mean adjustment, empty-bin pseudo-weight filling
 (strategy #2 of 1902.08831), and the alpha/beta mixture parameters.
 
-TPU-first redesign: the reference loops over bins with per-bin boolean
+Redesign: the reference loops over bins with per-bin boolean
 masks; here every per-bin statistic is a ``segment_sum`` over the per-event
 'bin_indices' array (from ``utils.add_indices``), fully vectorized and
 differentiable w.r.t. the event weights — so generalized-llh fits get

@@ -6,7 +6,7 @@ parameter vocabulary and weight conventions (cf. reference
 The reference wraps the external GLoBES C library (via Andrii Terliuk's
 python wrapper) and loops ``MatterProbabilityPrevBaseline`` per event — a
 scalar C call per (event, initial-flavor) pair. This service provides the
-same physics natively on the TPU-first 3+1 kernel
+same physics natively on the 3+1 kernel
 (:func:`pisa_tpu.ops.osc.sterile.osc_probs_layers_4nu`): one batched
 split-complex 4x4 layer-chain propagation per (nu, nubar) link, fully
 differentiable w.r.t. every mixing parameter (the reference engine has no

@@ -4,7 +4,7 @@ parameters (cf. reference ``pisa/stages/osc/nusquids.py:36-140``).
 
 The reference wraps the external nuSQuIDS C++ engine (numerical evolution
 on a node grid, interpolation to events, low-pass filtering of fast sterile
-oscillations). This service provides the same physics natively, TPU-first:
+oscillations). This service provides the same physics natively:
 
 - ``num_neutrinos=3``: the split-complex layer-chain kernel
   (:func:`pisa_tpu.ops.osc.kernels.osc_probs_layers`);

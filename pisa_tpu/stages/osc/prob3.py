@@ -16,7 +16,9 @@ from __future__ import annotations
 
 import numpy as np
 
+import jax
 import jax.numpy as jnp
+from jax.sharding import PartitionSpec as P
 
 from pisa_tpu import FTYPE, ureg
 from pisa_tpu.core.binning import MultiDimBinning
@@ -41,6 +43,12 @@ from pisa_tpu.ops.osc.nonstandard import (
     std_nsi_eps_C,
     vacuum_nsi_eps_C,
 )
+from pisa_tpu.ops.osc.pallas_chain import (
+    osc_probs_planar,
+    prepare_chain_geometry,
+    target_platform,
+    use_chain_kernel,
+)
 from pisa_tpu.ops.osc.pmns import OscParams, dm_matrix, pmns_matrix, pmns_matrix_reparam
 from pisa_tpu.utils.log import logging
 
@@ -62,6 +70,10 @@ _ALL_FLAVS = [
 _NU_FLAVS = _ALL_FLAVS[:6]
 _NUBAR_FLAVS = _ALL_FLAVS[6:]
 
+# container keys of the prepared chain-kernel geometry
+# (pallas_chain.prepare_chain_geometry), stored as osc_blk_<key>
+_GEOM_KEYS = ("e", "dens", "dist", "nl", "inv")
+
 
 class prob3(Stage):  # noqa: N801
     """See module docstring; parameters as in the reference
@@ -79,10 +91,9 @@ class prob3(Stage):  # noqa: N801
         **std_kwargs,
     ):
         # collapse mirrored chain segments to unique (density, distance)
-        # pairs (the reference kernel's layer cache, done once at setup).
-        # Measured on TPU v5e the re-expansion gather costs more than the
-        # saved transition FLOPs (157 vs 99 ms/template on the 3y pipeline),
-        # so this defaults to off; it can win on gather-cheap backends.
+        # pairs (the reference kernel's layer cache, done once at setup);
+        # off by default: the re-expansion gather can cost more than the
+        # saved transition algebra
         self.layer_dedup = layer_dedup
         expected_params = [
             "detector_depth",
@@ -250,14 +261,6 @@ class prob3(Stage):  # noqa: N801
             else:
                 container["densities"] = densities
                 container["distances"] = distances
-                # points sorted by chain length let the Pallas kernel's
-                # per-block dynamic layer bound skip the trailing padding
-                # (downgoing chains are 2 slots vs ~24 through the core);
-                # host-precomputed once since geometry is parameter-free
-                container["layer_chain_order"] = np.argsort(
-                    np.count_nonzero(np.asarray(distances) > 0.0, axis=1),
-                    kind="stable",
-                ).astype(np.int32)
                 # flat layer-major indices of the real (distance > 0) layer
                 # slots: the XLA/backward path then runs the transition
                 # algebra only over these instead of the padded rectangle
@@ -265,27 +268,30 @@ class prob3(Stage):  # noqa: N801
 
                 container["layer_slot_index"] = layer_slot_index(distances)
 
-                # Pre-blocked kernel geometry for the Pallas fast path:
-                # sort by chain length, pad/reshape to (L, rows, 128)
-                # slabs and compute per-block layer bounds ONCE here
-                # (static geometry) instead of inside every per-template
-                # program — see pallas_chain.prepare_chain_geometry.
-                from pisa_tpu.ops.osc.kernels import _pallas_mode
-
-                if _pallas_mode() is not None:
-                    from pisa_tpu.ops.osc.pallas_chain import (
-                        prepare_chain_geometry,
-                    )
-
+                # chain-kernel geometry (sorted, blocked, layer-major),
+                # prepared once here since the geometry is parameter-free
+                if self._use_kernel():
                     geom = prepare_chain_geometry(
                         np.asarray(container["true_energy"], dtype=FTYPE),
                         np.asarray(densities, dtype=FTYPE),
                         np.asarray(distances, dtype=FTYPE),
-                        order=container["layer_chain_order"],
                     )
-                    for gk, gv in geom.items():
-                        container[f"osc_blk_{gk}"] = gv
+                    for gk in _GEOM_KEYS:
+                        container[f"osc_blk_{gk}"] = geom[gk]
         self.data.unlink_containers()
+
+    def _use_kernel(self):
+        """The GPU chain kernel runs for standard three-flavour matter
+        physics in float32 on a GPU; everything else (CPU, fp64, decay,
+        NSI, LRI, tomography, layer dedup) runs the XLA formulation."""
+        standard = not (
+            self.neutrino_decay
+            or self.nsi_type is not None
+            or self.lri_type is not None
+            or self.tomography_type is not None
+            or self.layer_dedup
+        )
+        return use_chain_kernel(target_platform(), FTYPE, standard)
 
     # -- compute --------------------------------------------------------------
     def compute_function(self):
@@ -427,34 +433,18 @@ class prob3(Stage):  # noqa: N801
         )
         dm = dm_matrix(dm21, dm31)
 
-        # forward-mode (in-kernel JVP) gradient path: standard 3-flavor
-        # matter oscillations on the Pallas kernel, gradients via K tangent
-        # propagations at the physics-scalar boundary instead of reverse
-        # mode through the XLA formulation (see
-        # ops/osc/pallas_chain.osc_probs_layers_pallas_fwdgrad)
-        from pisa_tpu.ops.osc.kernels import _pallas_mode, osc_grad_mode
-
-        pallas_mode = _pallas_mode()
-        use_fwdgrad = (
-            pallas_mode is not None
-            and osc_grad_mode() == "jvp"
-            and not self.neutrino_decay
-            and self.nsi_type is None
-            and self.lri_type is None
-            and not self.layer_dedup
-        )
+        # GPU chain kernel (standard physics, float32): propagation and
+        # forward-mode gradients in one Pallas kernel over the geometry
+        # prepared at setup; the XLA formulation otherwise
+        use_kernel = self._use_kernel()
         theta_vec = (
             jnp.stack(
                 [
-                    jnp.asarray(theta12, dtype=FTYPE),
-                    jnp.asarray(theta13, dtype=FTYPE),
-                    jnp.asarray(theta23, dtype=FTYPE),
-                    jnp.asarray(deltacp, dtype=FTYPE),
-                    jnp.asarray(dm21, dtype=FTYPE),
-                    jnp.asarray(dm31, dtype=FTYPE),
+                    jnp.asarray(x, dtype=FTYPE)
+                    for x in (theta12, theta13, theta23, deltacp, dm21, dm31)
                 ]
             )
-            if use_fwdgrad
+            if use_kernel
             else None
         )
 
@@ -486,41 +476,35 @@ class prob3(Stage):  # noqa: N801
                     container.cat_aux("flav"), dtype=np.int32
                 )
                 rows_pf = grp * 3 + flav_arr
-                if use_fwdgrad and "osc_blk_e2" in container:
-                    # PLANAR fast path: the kernel's (init, final, point)
-                    # channel-first output feeds the P(e->f)/P(mu->f)
-                    # rate rows with ZERO transposes — the (N, 3, 3)
-                    # layout's 3x3 trailing dims tile-pad to (8, 128) on
-                    # TPU and its relayouts cost ~3 ms/template vs
-                    # ~0.5 ms of kernel time (osc_stage_tail_probe)
-                    pls = [
-                        self._propagate_planar(container, sign, theta_vec)
-                        for sign in (1, -1)
-                    ]
-                    pe = jnp.concatenate([p[0] for p in pls], axis=0)
-                    pm = jnp.concatenate([p[1] for p in pls], axis=0)
-                    container.set_stacked("prob_e", pe, rows=rows_pf)
-                    container.set_stacked("prob_mu", pm, rows=rows_pf)
-                    # full 3x3 probability (tau-initial row from double
-                    # stochasticity): built transposed for API parity,
-                    # dead-code-eliminated by XLA unless actually read
-                    full = []
-                    for p in pls:
-                        tau = jnp.maximum(1.0 - p[0] - p[1], 0.0)
-                        full.append(
-                            jnp.stack([p[0], p[1], tau]).transpose(2, 0, 1)
-                        )
+                if use_kernel and "osc_blk_e" in container:
+                    # both signs in one launch; the kernel's point-last
+                    # (sign, init, final, point) output reshapes straight
+                    # into the (group x final flavour) rate rows
+                    pl_ = self._propagate_planar(
+                        container, (1, -1), theta_vec
+                    )
+                    n = pl_.shape[-1]
                     container.set_stacked(
-                        "probability", jnp.stack(full), rows=grp
+                        "prob_e", pl_[:, 0].reshape(6, n), rows=rows_pf
+                    )
+                    container.set_stacked(
+                        "prob_mu", pl_[:, 1].reshape(6, n), rows=rows_pf
+                    )
+                    # full 3x3 probability (unused by the rates; XLA drops
+                    # it unless read)
+                    container.set_stacked(
+                        "probability",
+                        jnp.stack([_full_probs(p) for p in pl_]),
+                        rows=grp,
                     )
                     continue
                 p_nu = self._propagate(
                     container, 1, dm, mix, mat_pot, mat_decay, lri_pot,
-                    theta_vec, use_fwdgrad, pallas_mode,
+                    theta_vec,
                 )
                 p_nub = self._propagate(
                     container, -1, dm, mix, mat_pot, mat_decay, lri_pot,
-                    theta_vec, use_fwdgrad, pallas_mode,
+                    theta_vec,
                 )
                 probability = jnp.stack([p_nu, p_nub])  # (2, n, 3, 3)
                 container.set_stacked("probability", probability, rows=grp)
@@ -538,7 +522,7 @@ class prob3(Stage):  # noqa: N801
         for container in self.data:
             probs = self._propagate(
                 container, int(container["nubar"]), dm, mix, mat_pot,
-                mat_decay, lri_pot, theta_vec, use_fwdgrad, pallas_mode,
+                mat_decay, lri_pot, theta_vec,
             )
             container["probability"] = probs
             container.mark_changed("probability")
@@ -556,18 +540,17 @@ class prob3(Stage):  # noqa: N801
 
     def _propagate(
         self, container, nubar, dm, mix, mat_pot, mat_decay, lri_pot,
-        theta_vec, use_fwdgrad, pallas_mode,
+        theta_vec,
     ):
         """One propagation over a container's points for a given nubar sign;
         returns (n_points, 3, 3) probabilities."""
+        if theta_vec is not None and "osc_blk_e" in container:
+            return _full_probs(
+                self._propagate_planar(container, (nubar,), theta_vec)[0]
+            )
         chain_map = (
             jnp.asarray(container["layer_chain_map"])
             if self.layer_dedup
-            else None
-        )
-        chain_order = (
-            jnp.asarray(container["layer_chain_order"])
-            if not self.layer_dedup and "layer_chain_order" in container
             else None
         )
         import os as _os
@@ -586,76 +569,34 @@ class prob3(Stage):  # noqa: N801
             and not getattr(container, "grid_sharded", False)
             else None
         )
-        if use_fwdgrad and "osc_blk_e2" in container:
-            # pre-blocked static geometry (prepared at setup): the
-            # per-template program is just pack + kernel + unsort
-            from pisa_tpu.ops.osc.pallas_chain import (
-                osc_probs_layers_pallas_fwdgrad_prepared,
-            )
-
-            geom = {
-                gk: jnp.asarray(container[f"osc_blk_{gk}"])
-                for gk in ("e2", "dens", "dist", "nl", "order", "inv")
-                if f"osc_blk_{gk}" in container
-            }
-            # tangent propagations only for the FREE oscillation
-            # params (fixed components' cotangents are discarded
-            # upstream); the flagship fit frees 3 of the 6
-            active = tuple(
-                i
-                for i, prm in enumerate(
-                    (
-                        self.params.theta12,
-                        self.params.theta13,
-                        self.params.theta23,
-                        self.params.deltacp,
-                        self.params.deltam21,
-                        self.params.deltam31,
-                    )
-                )
-                if not prm.is_fixed
-            )
-            return osc_probs_layers_pallas_fwdgrad_prepared(
-                theta_vec,
-                nubar,
-                geom,
-                n=container.size,
-                reparam=self.reparam_mix_matrix,
-                nlo_factor=1.020 if self.include_nlo else 1.0,
-                interpret=(pallas_mode == "interpret"),
-                active=active,
-            )
-        if use_fwdgrad:
-            from pisa_tpu.ops.osc.pallas_chain import (
-                osc_probs_layers_pallas_fwdgrad,
-            )
-
-            return osc_probs_layers_pallas_fwdgrad(
-                theta_vec,
-                nubar,
-                jnp.asarray(container["true_energy"], dtype=FTYPE),
-                jnp.asarray(container["densities"], dtype=FTYPE),
-                jnp.asarray(container["distances"], dtype=FTYPE),
-                reparam=self.reparam_mix_matrix,
-                nlo_factor=1.020 if self.include_nlo else 1.0,
-                interpret=(pallas_mode == "interpret"),
-                order=chain_order,
-            )
-        return osc_probs_layers(
-            dm,
-            mix,
-            mat_pot,
-            mat_decay,
-            jnp.asarray(lri_pot, dtype=FTYPE),
-            nubar,
+        physics = (dm, mix, mat_pot, mat_decay,
+                   jnp.asarray(lri_pot, dtype=FTYPE))
+        points = (
             jnp.asarray(container["true_energy"], dtype=FTYPE),
             jnp.asarray(container["densities"], dtype=FTYPE),
             jnp.asarray(container["distances"], dtype=FTYPE),
-            decay_flag=bool(self.neutrino_decay),
-            chain_map=chain_map,
-            chain_order=chain_order,
-            slot_index=slot_index,
-        )
+        ) + (() if chain_map is None else (chain_map,))
+
+        def propagate(physics, e, dens, dist, cmap=None):
+            return osc_probs_layers(
+                *physics, nubar, e, dens, dist,
+                decay_flag=bool(self.neutrino_decay), chain_map=cmap,
+                slot_index=slot_index,
+            )
+
+        if getattr(container, "grid_sharded", False):
+            # pointwise over the grid: each device propagates its own
+            # shard (under plain GSPMD the layer-major reshapes lose the
+            # point sharding and every device would run the whole grid)
+            ax = container.mesh_axis
+            propagate = jax.shard_map(
+                propagate, mesh=container.mesh,
+                in_specs=(P(),) + (P(ax),) + (P(ax, None),) * (
+                    len(points) - 1
+                ),
+                out_specs=P(ax), check_vma=False,
+            )
+        return propagate(physics, *points)
 
     # stacked-container support: grid calc + events apply (the flagship
     # shape), where the probabilities live on the shared grid as
@@ -672,30 +613,24 @@ class prob3(Stage):  # noqa: N801
 
     def stacking_exclude_keys(self):
         # events-calc helper arrays whose leading axis is NOT the event
-        # axis (point orderings, compacted slot indices, pre-blocked Pallas
-        # geometry) cannot pad-stack; the stacked events path runs the
-        # plain XLA formulation and never reads them
+        # axis (compacted slot indices, prepared kernel geometry) cannot
+        # pad-stack; the stacked events path runs the plain XLA formulation
+        # and never reads them
         if self.is_map:
             return ()
-        return (
-            "layer_chain_order", "layer_slot_index", "layer_chain_map",
-            "osc_blk_e2", "osc_blk_dens", "osc_blk_dist", "osc_blk_nl",
-            "osc_blk_order", "osc_blk_inv",
+        return ("layer_slot_index", "layer_chain_map") + tuple(
+            f"osc_blk_{gk}" for gk in _GEOM_KEYS
         )
 
-    def _propagate_planar(self, container, nubar, theta_vec):
-        """One planar-layout propagation over the pre-blocked geometry:
-        returns ``(2, 3, n)`` — (initial state e/mu, final flavor, point)
-        with the point axis on the TPU lanes (see
-        ``pallas_chain.osc_probs_layers_pallas_fwdgrad_prepared_planar``)."""
-        from pisa_tpu.ops.osc.pallas_chain import (
-            osc_probs_layers_pallas_fwdgrad_prepared_planar,
-        )
-
+    def _propagate_planar(self, container, signs, theta_vec):
+        """Chain-kernel propagation over the container's prepared geometry
+        for the neutrino `signs`: returns ``(len(signs), 2, 3, n)`` --
+        (sign, initial state e/mu, final flavour, point). Tangent launches
+        run only for the free oscillation parameters (a fixed one's
+        cotangent is discarded upstream); on a sharded container the
+        launches run under shard_map over its mesh."""
         geom = {
-            gk: jnp.asarray(container[f"osc_blk_{gk}"])
-            for gk in ("e2", "dens", "dist", "nl", "order", "inv")
-            if f"osc_blk_{gk}" in container
+            gk: jnp.asarray(container[f"osc_blk_{gk}"]) for gk in _GEOM_KEYS
         }
         active = tuple(
             i
@@ -711,17 +646,15 @@ class prob3(Stage):  # noqa: N801
             )
             if not prm.is_fixed
         )
-        from pisa_tpu.ops.osc.kernels import _pallas_mode
-
-        return osc_probs_layers_pallas_fwdgrad_prepared_planar(
+        return osc_probs_planar(
             theta_vec,
-            nubar,
+            signs,
             geom,
-            n=container.size,
             reparam=self.reparam_mix_matrix,
             nlo_factor=1.020 if self.include_nlo else 1.0,
-            interpret=(_pallas_mode() == "interpret"),
             active=active,
+            mesh=getattr(container, "mesh", None),
+            axis_name=getattr(container, "mesh_axis", "data"),
         )
 
     def _compute_stacked_events(self, container, dm, mix, mat_pot,
@@ -836,10 +769,9 @@ class prob3(Stage):  # noqa: N801
             # rate DEFERRAL (CompiledTemplate._setup_rate_deferral): hand
             # the (6, ngrid) grid rate to the histogram stage as a factor
             # instead of gathering it to 240k events here — the factorized
-            # histogram contracts it against a static (grid x bins) matrix
-            # on the MXU, eliminating both the forward gather (~1.6 ms
-            # measured, benchmarks/template_value_decomp.py) and its
-            # reverse-mode scatter (~1.5 ms) from every template/gradient.
+            # histogram contracts it against a static (grid x bins) matrix,
+            # removing both the forward gather and its reverse-mode scatter
+            # from every template/gradient.
             container.deferred_rate = {"rate": rate, "rows": rows_pf}
             container.representation = rep
             return
@@ -863,7 +795,7 @@ class prob3(Stage):  # noqa: N801
             # single resulting rate channel: an 'average'-mode lookup gathers
             # the event's own grid cell, so gather(flux)*gather(prob) ==
             # gather(flux*prob) exactly — and one gather per container
-            # replaces three (TPU gathers dominated the template evaluation).
+            # replaces three.
             #
             # This identity holds ONLY for events-rep lookups of grid-sourced
             # values. It does NOT hold when the apply representation is a
@@ -905,6 +837,14 @@ class prob3(Stage):  # noqa: N801
                     nu_flux[:, 0] * container["prob_e"]
                     + nu_flux[:, 1] * container["prob_mu"]
                 )
+
+
+def _full_probs(planar):
+    """(2, 3, n) e/mu initial-state rows -> (n, 3, 3) probabilities, the
+    tau row from double stochasticity (|U|^2 of a unitary has unit column
+    sums)."""
+    tau = jnp.maximum(1.0 - planar[0] - planar[1], 0.0)
+    return jnp.stack([planar[0], planar[1], tau]).transpose(2, 0, 1)
 
 
 def init_test(**param_kwargs):

@@ -3,7 +3,7 @@ Store each event's flat bin index under the calc binning (cf. reference
 ``pisa/stages/utils/add_indices.py``, which stores per-bin boolean masks via
 ``bin_indexing.lookup_indices``).
 
-TPU-first delta: one ``(N,)`` int index array per container instead of
+Delta from the reference: one ``(N,)`` int index array per container instead of
 ``num_bins`` boolean masks (O(N) memory instead of O(N*B); downstream
 per-bin reductions become segment-sums over the index array). Consumed by
 ``likelihood.generalized_llh_params``.

@@ -3,10 +3,10 @@ Histogramming stage (cf. reference ``pisa/stages/utils/hist.py:17``):
 converts per-event weights into binned weights under the output binning,
 or re-bins binned weights via a precomputed transform matrix.
 
-TPU-first: events->binned uses the scatter-add histogram kernel directly
-(one uniform path — no regularized/log special-casing needed); the
-binned->binned path keeps the reference's ``hist_transform`` matmul, which
-maps perfectly onto the MXU.
+Events->binned is one dense one-hot matmul per template (the scatter-add
+histogram kernel is the fallback; no regularized/log special-casing
+needed); the binned->binned path keeps the reference's ``hist_transform``
+matmul.
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ class hist(Stage):  # noqa: N801
         if isinstance(self.calc_mode, MultiDimBinning):
             # binned->binned: precompute the (calc_size, apply_size) transform
             # as an unweighted 2-binning joint histogram of the events
-            # (cf. reference hist.py:95-160); applied as a matmul (MXU)
+            # (cf. reference hist.py:95-160); applied as a matmul
             if set(self.calc_mode.names) & set(self.apply_mode.names):
                 raise ValueError(
                     "calc and apply binnings must use disjoint dimensions"
@@ -73,7 +73,7 @@ class hist(Stage):  # noqa: N801
         else:
             # events->binned: precompute the dense one-hot bin-membership
             # matrix per container while coordinates are concrete, so the
-            # per-template histogram is one MXU matmul (the scatter-add
+            # per-template histogram is one matmul (the scatter-add
             # remains the fallback when the matrix is unavailable)
             self.data.representation = "events"
             for container in self.data:
@@ -111,10 +111,9 @@ class hist(Stage):  # noqa: N801
 
         where A0 is the static per-event weight base (initial weights x
         the declared static factors, e.g. weighted_aeff). The per-template
-        histogram then is H[c, :] = s_c * rate[row_c, :] @ S_c — one MXU
-        contraction instead of a 240k-index grid->events gather whose
-        XLA:TPU cost (~7 ns/index) dominated the template
-        (benchmarks/template_value_decomp.py: 1.6 of 3.8 ms/eval). The
+        histogram then is H[c, :] = s_c * rate[row_c, :] @ S_c — one dense
+        contraction instead of a 240k-index grid->events gather and its
+        reverse-mode scatter. The
         per-category scalar s_c (all parameter dependence of the non-rate
         weight factors, guaranteed scalar by the stages'
         ``stacked_rate_defer_safe`` contract) is extracted in-trace from a
@@ -349,9 +348,9 @@ class hist(Stage):  # noqa: N801
                 else:
                     unc = 1.0
                 w = unc * weights
-                # MXU path: all weight channels histogrammed in ONE dense
-                # matmul against the cached one-hot membership matrix (one
-                # HBM read of the matrix per template)
+                # all weight channels histogrammed in ONE dense matmul
+                # against the cached one-hot membership matrix (one read of
+                # the matrix per template)
                 matrix = container.cached_hist_matrix(self.apply_mode)
                 if matrix is not None:
                     if self.error_method == "sumw2":

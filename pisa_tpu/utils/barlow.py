@@ -6,7 +6,7 @@ doi:10.1016/0010-4655(93)90005-W).
 
 API-compatible with the reference class (``set_data`` / ``set_mc`` /
 ``set_unweighted`` / ``get_llh('barlow'|'poisson')`` / ``get_plot`` /
-``get_single_plots``), but TPU-native in its solution method: instead of an
+``get_single_plots``), but compiled in its solution method: instead of an
 independent scipy Powell minimization per bin (the reference loops bins on
 the host), the per-bin profile over the latent per-source MC counts A_j is
 reduced to the Barlow-Beeston scalar equation and solved for EVERY bin at

@@ -6,7 +6,7 @@ Rebuild of the reference subsystem
 Hypersurface, ``:356`` evaluate, ``:477`` fit, ``:1598`` fit_hypersurfaces,
 ``:2065`` data-release CSV loading).
 
-TPU-first redesign:
+Redesign:
 
 - A hypersurface over B bins is stored as stacked arrays — intercept ``(B,)``
   and one ``(B, nargs)`` coefficient block per systematic parameter — not B
@@ -559,7 +559,7 @@ def _load_hypersurfaces_data_release(prototype, binning):
     columns = bin centers + offset + one slope per systematic
     (cf. reference ``hypersurface.py:2065``). Evaluation uses *raw* param
     values (legacy semantics)."""
-    import pandas as pd
+    from pisa_tpu.utils.fileio import read_csv
 
     if binning is None:
         raise ValueError(
@@ -569,17 +569,17 @@ def _load_hypersurfaces_data_release(prototype, binning):
     out = OrderedDict()
     param_names = None
     for map_name, tag in _DATA_RELEASE_KEYS.items():
-        df = pd.read_csv(find_resource(prototype.replace("*", tag)))
+        df = read_csv(find_resource(prototype.replace("*", tag)))
         for n in binning.names:
-            centers_found = np.unique(df.pop(n).values)
+            centers_found = np.unique(df.pop(n))
             if centers_found.size != binning[n].num_bins:
                 raise ValueError(
                     f"binning mismatch in {tag} for dimension {n}"
                 )
         offset = df.pop("offset")
         if param_names is None:
-            param_names = df.columns.tolist()
-        elif param_names != df.columns.tolist():
+            param_names = list(df)
+        elif param_names != list(df):
             raise ValueError("param mismatch between hypersurface files")
 
         hs = Hypersurface(
@@ -589,11 +589,9 @@ def _load_hypersurfaces_data_release(prototype, binning):
             nominal_values={n: np.nan for n in param_names},
             using_legacy_data=True,
         )
-        hs.intercept = offset.values.reshape(-1).astype(FTYPE)
+        hs.intercept = offset.reshape(-1).astype(FTYPE)
         for name in param_names:
-            hs.coeffts[name] = (
-                df[name].values.reshape(-1, 1).astype(FTYPE)
-            )
+            hs.coeffts[name] = df[name].reshape(-1, 1).astype(FTYPE)
         out[map_name] = hs
     return out
 

@@ -14,14 +14,14 @@ implemented natively in JAX:
   ``lambda_i = (pilot_i / g)^(-alpha)`` (g = geometric mean) widen kernels
   in low-density regions;
 - evaluation is one jitted einsum-shaped (N_events x N_gridpoints)
-  elementwise contraction — the natural TPU layout.
+  elementwise contraction.
 
 The histogram conveniences mirror the reference exactly: coszen reflection
 at the +-1 edges (fraction of bins mirrored and folded back), evaluation at
 (oversampled) bin centers scaled by bin volumes, per-PID-bin stacking, and
 bootstrap error estimation by multinomial resampling.
 
-TPU-first structure: everything derived from the *binning* (evaluation
+Structure: everything derived from the *binning* (evaluation
 grid, reflection fold maps, oversample reduction, bin volumes) is
 precomputed host-side once; the per-call computation — bandwidths, pilot,
 density, reflection fold, oversample reduction — is pure ``jnp`` and safe

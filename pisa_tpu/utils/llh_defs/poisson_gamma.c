@@ -2,7 +2,7 @@
  * Generalized Poisson-gamma mixture probabilities
  * (arXiv:1902.08831, eqs. 91/97) — native host implementation.
  *
- * The TPU framework's primary implementation is the vectorized,
+ * The framework's primary implementation is the vectorized,
  * differentiable JAX version in poisson.py; this C library is the
  * host-side native equivalent of the reference framework's compiled
  * extension (cf. pisa/utils/llh_defs/poisson_gamma.c — same mathematics,

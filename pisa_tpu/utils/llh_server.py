@@ -5,7 +5,7 @@ llh server: serve compiled-template likelihood evaluations over TCP
 scalar llh).
 
 This exists for wire-protocol parity with the reference's emcee workflow.
-The TPU-native path does NOT need it: use
+The compiled path does NOT need it: use
 :func:`pisa_tpu.parallel.build_batched_objective` (vmapped walkers, sharded
 over the mesh) or :func:`pisa_tpu.analysis.bayesian.mcmc_sampling` — both
 evaluate entirely on device without sockets or processes. Unlike the

@@ -1,6 +1,6 @@
 """
 Worker process for tests/test_multihost.py: joins a 2-process
-jax.distributed cluster over localhost (the DCN code path, on CPU
+jax.distributed cluster over localhost (the multi-host code path, on CPU
 devices), evaluates an oscillation-probability sum over a globally sharded
 event axis, and prints the scalar.
 
@@ -15,8 +15,6 @@ coordinator, num_procs, pid = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
 os.environ["JAX_PLATFORMS"] = "cpu"
 
 import jax  # noqa: E402
-
-jax.config.update("jax_platforms", "cpu")
 
 from pisa_tpu.parallel import multihost  # noqa: E402
 

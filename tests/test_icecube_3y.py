@@ -1,6 +1,6 @@
 """
 End-to-end tests of the flagship IceCube 3-year pipelines (eager path; the
-compiled path is exercised on small configs in test_pipeline_e2e and on TPU
+compiled path is exercised on small configs in test_pipeline_e2e and on the GPU
 by bench.py — XLA-compiling the full 240k-event template takes minutes on a
 1-core CPU).
 """

@@ -3,8 +3,7 @@ Parity of the baseline-calibration proxy (``benchmarks/reference_proxy.py``)
 with the framework's own oscillation kernels: same algorithm (Barger et al.,
 cf. reference ``numba_osc_kernels.py:122``), independently implemented twice
 — complex128 numpy vs split-complex JAX. Agreement at fp64 makes the proxy a
-defensible stand-in for reference-PISA throughput measurements
-(BASELINE_MEASURED.md).
+defensible stand-in for reference-PISA throughput measurements.
 """
 
 import os

@@ -23,11 +23,9 @@ from pisa_tpu.parallel import default_mesh
 
 # Default: deterministic 2% subsample (4.8k of 240k events) keeps the two
 # compiles affordable on the CI box. PISA_TPU_FULL_SHARD=1 runs the parity
-# at the FULL 240k-event shape (slow; pair it with
-# XLA_FLAGS=--xla_cpu_collective_call_terminate_timeout_seconds=1200 so
-# XLA:CPU's 40 s collective rendezvous abort cannot fire mid-eval on a
-# time-sliced 1-vCPU host) — the on-record full-shape run lives in
-# artifacts/full_shard_parity_*.log.
+# at the FULL 240k-event shape (slow on the CPU; conftest raises XLA:CPU's
+# collective rendezvous timeout so it cannot abort mid-eval on a loaded
+# host).
 FULL_SHARD = os.environ.get("PISA_TPU_FULL_SHARD", "") == "1"
 FRACTION = None if FULL_SHARD else 0.02
 

@@ -4,9 +4,8 @@ Container-stacking parity: a compiled template traced over the stacked
 maps, errors, objective value and analytic gradient — and the stacking
 primitives must honor padding for unequal category sizes.
 
-See pisa_tpu/core/stacking.py; the motivation is the measured latency-bound
-small-fusion tail of the per-container trace (BASELINE_MEASURED.md
-"Roofline": ~25 ms of the flagship value_and_grad was 12 near-identical
+See pisa_tpu/core/stacking.py; the motivation is the latency-bound
+small-fusion tail of the per-container trace (12 near-identical
 per-category op chains).
 """
 

@@ -212,7 +212,7 @@ class TestResample:
 
 
 class TestHistogramMatmul:
-    """The MXU one-hot matmul histogram must match the scatter-add path
+    """The one-hot matmul histogram must match the scatter-add path
     (and therefore numpy.histogramdd) bit-for-bit up to accumulation
     order."""
 
