@@ -17,9 +17,9 @@ at full size through the public API -- ``Pipeline`` and an eager
 - the GPU template and objective gradient against the same compiled
   program run on this process's CPU backend (which takes the XLA
   oscillation formulation);
-- the oscillation kernel's probabilities and tangents at the flagship grid
-  against the XLA formulation in float64, and against the reference's
-  float64 golden pickles.
+- the oscillation kernel's probabilities and tangents (reverse and forward
+  mode) at the flagship grid against the XLA formulation in float64, and
+  against the reference's float64 golden pickles.
 
 ``--devices 4`` runs only the multi-device path and what it is compared
 with: the template and ``value_and_grad`` on ``CompiledTemplate.shard`` over
@@ -41,6 +41,7 @@ import glob
 import json
 import os
 import pickle
+import re
 import subprocess
 import sys
 import tempfile
@@ -52,18 +53,21 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CFG = "settings/pipeline/IceCube_3y_neutrinos.cfg"
 THETA_FLAGSHIP = (0.5836, 0.1496, 0.8587, 0.0, 7.4e-5, 2.5e-3)
 
-# Tolerances (float32 on the card). TF32 keeps ~3 decimal digits, so a
-# float32 contraction run in TF32 misses each of these by an order of
-# magnitude or more.
+# Tolerances (float32 on the card). The contractions on the template and
+# gradient path run in full fp32 (pisa_tpu sets the default matmul
+# precision to "highest"); benchmarks/tf32_control.py runs the template and
+# objective comparisons with every contraction in TF32 and shows which of
+# these limits that breaks (readings in PERF.md). The probability checks
+# involve no contraction.
 # Template bins holding >= 1 expected event, GPU vs CPU backend: the two
 # sides differ by oscillation formulation (kernel vs XLA, ~1e-5 absolute on
 # probabilities) and by fp32 summation order over ~20k events per bin.
 TEMPLATE_RTOL = 1e-4
 # Objective value and gradient, GPU vs CPU: a sum of ~1k per-bin chi2
 # terms; gradient entries are compared on the scale of the largest one
-# because some entries are near-cancelling sums.
+# because some entries are near-cancelling sums (fp32 reads ~4e-7).
 OBJECTIVE_RTOL = 1e-4
-GRADIENT_ATOL_REL = 1e-3
+GRADIENT_ATOL_REL = 2e-5
 # Oscillation probabilities at the flagship grid, fp32 kernel vs the XLA
 # formulation in float64: the chain product of up to 24 layer transitions
 # in fp32 (the XLA formulation's own fp32 error there is ~4e-5).
@@ -74,6 +78,9 @@ PROB_ATOL = 1e-4
 GOLDEN_ATOL = 2e-5
 # Tangents of a weighted probability sum (480k terms), per component.
 TANGENT_RTOL = 1e-3
+# The same tangents in forward vs reverse mode: the same per-component
+# launches, summed over 480k terms in another order.
+FORWARD_RTOL = 1e-4
 # Batched (vmapped) vs sequential objective: the same program, fused and
 # reduced in another order.
 BATCHED_RTOL = 1e-5
@@ -166,6 +173,7 @@ def compare_bins(label, got, ref, rtol):
           flush=True)
     if not worst <= rtol:
         raise AssertionError(f"{label}: {worst:.3e} > {rtol}")
+    return worst
 
 
 def objective_on(ct, data_maps, backend_device):
@@ -246,6 +254,11 @@ def check_kernels(pipeline, cpu):
     g_kernel = np.asarray(tangent(theta, geom))
     print(f"kernel compile+first (3 tangents): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # forward mode (jax.jacfwd, as the Fisher matrix takes it) through the
+    # same tangent launches
+    forward = jax.jit(jax.jacfwd(lambda t, g: jnp.sum(
+        wj * pc.osc_probs_planar(t, (1, -1), g, active=(1, 2, 5)))))
+    g_fwd = np.asarray(forward(theta, geom))
     xla32 = np.asarray(jax.jit(
         lambda t: xla_planar(t, (1, -1), e, dens, dist))(theta))
 
@@ -270,6 +283,11 @@ def check_kernels(pipeline, cpu):
           f" inactive components {g_kernel[[0, 3, 4]].tolist()}", flush=True)
     if not (rel.max() <= TANGENT_RTOL and np.all(g_kernel[[0, 3, 4]] == 0)):
         raise AssertionError("kernel tangents disagree with the reference")
+    d_fwd = float(np.abs(g_fwd - g_kernel).max() / np.abs(g_kernel).max())
+    print(f"forward mode (jacfwd) vs reverse mode on the card: max deviation"
+          f" {d_fwd:.2e} of max |g| (limit {FORWARD_RTOL})", flush=True)
+    if not d_fwd <= FORWARD_RTOL:
+        raise AssertionError("forward-mode derivatives disagree")
 
     # the reference's float64 golden pickles (cases whose physics the
     # kernel covers: no decay, standard matter potential)
@@ -325,16 +343,16 @@ def check_kernels(pipeline, cpu):
         raise AssertionError("kernel disagrees with the golden pickles")
 
 
-def single_card(card):
+def template_phases(card, cpu):
+    """Pipeline, eager and compiled template, and the template against the
+    CPU backend. Returns (pipeline, compiled template, v0, v1, readings:
+    the worst relative deviation of compiled vs eager and of GPU vs
+    CPU)."""
     import jax
     import jax.numpy as jnp
     import numpy as np
 
-    from pisa_tpu.analysis import device_fit
     from pisa_tpu.core.pipeline import Pipeline
-    from pisa_tpu.parallel import build_batched_objective
-
-    cpu = jax.devices("cpu")[0]
 
     with phase("pipeline + eager get_outputs"):
         pipeline = Pipeline(CFG)
@@ -351,16 +369,22 @@ def single_card(card):
         compiled = hist_map(ct.get_outputs(v0))
         print(f"set-up: compile + first template "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
-        compare_bins("compiled vs eager (GPU)", compiled, eager,
-                     TEMPLATE_RTOL)
+        readings = {"compiled_vs_eager": compare_bins(
+            "compiled vs eager (GPU)", compiled, eager, TEMPLATE_RTOL)}
         los, his = ct._current_bounds()
         targs = (jnp.asarray(v0), jnp.asarray(los), jnp.asarray(his),
                  ct._data_vals)
-        print_memory("template", ct._jitted.lower(*targs).compile())
+        exe = ct._jitted.lower(*targs).compile()
+        print_memory("template", exe)
+        shapes = kernel_shapes(exe.as_text())
+        print(f"chain kernel launches (output shape): {shapes}", flush=True)
+        if not shapes:
+            raise AssertionError("template runs no chain kernel")
         print(f"template wall {wall_ms(ct._jitted, *targs):.3f} ms on {card}",
               flush=True)
 
     v1 = np.clip(v0 + 0.07 * np.sign(0.5 - v0), 0.05, 0.95)
+    worst = 0.0
     with phase("template vs CPU backend"):
         fn_cpu = jax.jit(ct._build_fn())
         data_cpu = jax.device_put(ct._data_vals, cpu)
@@ -375,12 +399,23 @@ def single_card(card):
                     for x in (*got.values(), *ref.values())} != {"gpu",
                                                                  "cpu"}:
                 raise AssertionError("template comparison ran on one backend")
-            compare_bins(
+            worst = max(worst, compare_bins(
                 "template GPU vs CPU",
                 {k: np.asarray(x, np.float64) for k, x in got.items()},
                 {k: np.asarray(x, np.float64) for k, x in ref.items()},
                 TEMPLATE_RTOL,
-            )
+            ))
+    readings["gpu_vs_cpu"] = worst
+    return pipeline, ct, v0, v1, readings
+
+
+def gradient_phase(card, ct, v0, v1, cpu):
+    """value_and_grad of the chi2 objective on the card against the CPU
+    backend. Returns (Asimov data maps, objective, relative objective
+    deviation, gradient deviation on the scale of max |g|)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
 
     data_maps = ct.get_outputs(v0)
     with phase("value_and_grad"):
@@ -393,20 +428,35 @@ def single_card(card):
         val_c, grad_c = vg_cpu(v1)
         val, grad = float(val), np.asarray(grad, np.float64)
         val_c, grad_c = float(val_c), np.asarray(grad_c, np.float64)
-        scale = np.abs(grad_c).max()
-        dg = np.abs(grad - grad_c).max() / scale
-        print(f"objective GPU {val:.6e} vs CPU {val_c:.6e}; gradient max"
-              f" deviation {dg:.2e} of max |g| (limits {OBJECTIVE_RTOL},"
-              f" {GRADIENT_ATOL_REL})", flush=True)
-        if not (abs(val / val_c - 1) <= OBJECTIVE_RTOL
-                and dg <= GRADIENT_ATOL_REL and np.all(np.isfinite(grad))):
+        dv = abs(val / val_c - 1)
+        dg = np.abs(grad - grad_c).max() / np.abs(grad_c).max()
+        print(f"objective GPU {val:.6e} vs CPU {val_c:.6e} (relative"
+              f" {dv:.2e}); gradient max deviation {dg:.2e} of max |g|"
+              f" (limits {OBJECTIVE_RTOL}, {GRADIENT_ATOL_REL})", flush=True)
+        if not (dv <= OBJECTIVE_RTOL and dg <= GRADIENT_ATOL_REL
+                and np.all(np.isfinite(grad))):
             raise AssertionError("objective/gradient disagree with CPU")
+        los, his = ct._current_bounds()
         gargs = (jnp.asarray(v1), jnp.asarray(los), jnp.asarray(his),
                  ct._data_vals)
         vg_jit = jax.jit(jax.value_and_grad(value_fn.raw))
         print_memory("value_and_grad", vg_jit.lower(*gargs).compile())
         print(f"value_and_grad wall {wall_ms(vg_jit, *gargs):.3f} ms"
               f" on {card}", flush=True)
+    return data_maps, value_fn, dv, dg
+
+
+def single_card(card):
+    import jax
+    import numpy as np
+
+    from pisa_tpu.analysis import device_fit
+    from pisa_tpu.parallel import build_batched_objective
+
+    cpu = jax.devices("cpu")[0]
+    pipeline, ct, v0, v1, _ = template_phases(card, cpu)
+    data_maps, value_fn, _, _ = gradient_phase(card, ct, v0, v1, cpu)
+    los, his = ct._current_bounds()
 
     with phase("on-device L-BFGS fit"):
         x0 = np.clip(v0 + 0.08, 0.02, 0.98)
@@ -449,24 +499,48 @@ def single_card(card):
         check_kernels(pipeline, cpu)
 
 
-def check_kernel_sharded(hlo_text):
-    """The sharded template runs the chain kernel per shard (shard_map),
-    not as one replicated call."""
-    if "__gpu$xla.gpu.triton" not in hlo_text or (
-        "sdy.manual_computation" not in hlo_text
-        and "shard_map" not in hlo_text
+_TRITON_CALL = re.compile(
+    r"=\s*[a-z0-9]+\[([0-9,]+)\]\S*\s+custom-call\([^\n]*"
+    r'custom_call_target="__gpu\$xla\.gpu\.triton"'
+)
+
+
+def kernel_shapes(hlo_text):
+    """Output shape of every Triton kernel launch in a compiled program's
+    HLO (for a sharded program, the shape each card runs); the last axis
+    is the point axis."""
+    return sorted(tuple(int(x) for x in m.group(1).split(","))
+                  for m in _TRITON_CALL.finditer(hlo_text))
+
+
+def check_spread(ct1, args1, ctn, argsn, n):
+    """The sharded program runs every chain-kernel launch on 1/n of the
+    points on each card, and each card holds under half the one-card
+    template data."""
+    import jax
+
+    s1 = kernel_shapes(ct1._jitted.lower(*args1).compile().as_text())
+    sn = kernel_shapes(ctn._jitted.lower(*argsn).compile().as_text())
+    print(f"chain kernel launches (output shape): 1 card {s1}, each of"
+          f" {n} cards {sn}", flush=True)
+    if not s1 or sn != [s[:-1] + (s[-1] // n,) for s in s1] or any(
+        s[-1] % n for s in s1
     ):
-        raise AssertionError("kernel not under shard_map in the sharded"
-                             " template")
-
-
-def check_spread(devices):
-    """Every card held part of the sharded program's data and work."""
-    peaks = [d.memory_stats()["peak_bytes_in_use"] / 2**20 for d in devices]
-    print(f"peak device memory per card (MiB): {[round(p) for p in peaks]}",
-          flush=True)
-    if min(peaks) < 16:
-        raise AssertionError("work did not spread over the cards")
+        raise AssertionError("kernel launches not split over the cards")
+    total = sum(a.nbytes for a in ct1._data_vals)
+    per = {}
+    for a in ctn._data_vals:
+        for sh in a.addressable_shards:
+            per[sh.device.id] = per.get(sh.device.id, 0) + sh.data.nbytes
+    print(f"template data per card (MiB): "
+          f"{[round(per[k] / 2**20, 1) for k in sorted(per)]}, one card"
+          f" {total / 2**20:.1f}", flush=True)
+    if len(per) != n or max(per.values()) > total / 2:
+        raise AssertionError("template data not spread over the cards")
+    peaks = [d.memory_stats()["peak_bytes_in_use"] / 2**20
+             for d in jax.devices()[:n]]
+    print(f"peak device memory per card (MiB; card 0 also holds the"
+          f" one-card reference): {[round(p) for p in peaks]}", flush=True)
 
 
 def multi_card(card, n):
@@ -492,12 +566,9 @@ def multi_card(card, n):
         los, his = ct4._current_bounds()
         args4 = (jnp.asarray(v1), jnp.asarray(los), jnp.asarray(his),
                  ct4._data_vals)
-        check_kernel_sharded(ct4._jitted.lower(*args4).as_text())
-        placed = {d for a in ct4._data_vals for d in a.sharding.device_set}
-        if len(placed) != n:
-            raise AssertionError(f"data placed on {len(placed)} devices")
         args1 = (jnp.asarray(v1), jnp.asarray(los), jnp.asarray(his),
                  ct1._data_vals)
+        check_spread(ct1, args1, ct4, args4, n)
         print(f"template wall: 1 card {wall_ms(ct1._jitted, *args1):.3f} ms,"
               f" {n} cards {wall_ms(ct4._jitted, *args4):.3f} ms on {card}",
               flush=True)
@@ -516,7 +587,6 @@ def multi_card(card, n):
         if not (abs(float(val4) / float(val1) - 1) <= OBJECTIVE_RTOL
                 and dg <= GRADIENT_ATOL_REL):
             raise AssertionError("sharded objective disagrees")
-        check_spread(jax.devices()[:n])
 
     with phase(f"trial-sharded batched objective over {n} cards"):
         vecs = np.random.RandomState(1).uniform(0.2, 0.8, (32, len(v0)))
@@ -526,6 +596,14 @@ def multi_card(card, n):
         got = bn(vecs)
         if len(got.sharding.device_set) != n:
             raise AssertionError("batched output not spread over the mesh")
+        los1, his1 = ct1._current_bounds()
+        bargs = (jnp.asarray(vecs), jnp.asarray(los1), jnp.asarray(his1),
+                 ct1._data_vals)
+        print(f"chain kernel launches (output shape): 1 card "
+              f"{kernel_shapes(b1.jitted.lower(*bargs).compile().as_text())},"
+              f" each of {n} cards "
+              f"{kernel_shapes(bn.jitted.lower(*bargs).compile().as_text())}",
+              flush=True)
         dev = float(np.max(np.abs(np.asarray(got, np.float64) / ref - 1)))
         print(f"trial-sharded vs one card: max relative deviation {dev:.2e}"
               f" (limit {BATCHED_RTOL})", flush=True)

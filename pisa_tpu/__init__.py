@@ -20,8 +20,8 @@ Global runtime configuration (cf. reference ``pisa/__init__.py:50-82``):
 - float32 contractions run at full precision everywhere: importing the
   package sets ``jax_default_matmul_precision="highest"`` (no TF32).
 - ``COMPILATION_CACHE_DIR``: the persistent XLA compilation cache
-  (``JAX_COMPILATION_CACHE_DIR`` when set, else ``.jax_cache`` in the
-  checkout).
+  (``JAX_COMPILATION_CACHE_DIR`` when set, else ``.jax_cache`` in a source
+  checkout, else None: an installed package sets no cache).
 - ``ureg``/``Q_``: unit registry (minimal pint-compatible implementation in
   ``pisa_tpu.units``).
 """
@@ -98,15 +98,19 @@ _jax.config.update("jax_default_matmul_precision", "highest")
 # compiled-function disk cache, ``pisa/__init__.py:96-120``): repeat runs of
 # bench/tests/fits skip recompiles of the big template programs. Where
 # JAX_COMPILATION_CACHE_DIR is set, JAX reads it itself and no other
-# directory is set here; otherwise the cache lives at one fixed path inside
-# the checkout, so every process run from it finds the same entries.
+# directory is set here. Otherwise, when the package sits in a source
+# checkout (pyproject.toml beside it), the cache lives at one fixed path
+# inside that checkout, so every process run from it finds the same
+# entries; an installed package keeps JAX's own default (no cache).
+_CHECKOUT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COMPILATION_CACHE_DIR = os.environ.get("JAX_COMPILATION_CACHE_DIR") or (
-    os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        ".jax_cache",
-    )
+    os.path.join(_CHECKOUT, ".jax_cache")
+    if os.path.isfile(os.path.join(_CHECKOUT, "pyproject.toml"))
+    else None
 )
-if os.environ.get("PISA_TPU_COMPILATION_CACHE", "1") not in ("0", "off"):
+if COMPILATION_CACHE_DIR and os.environ.get(
+    "PISA_TPU_COMPILATION_CACHE", "1"
+) not in ("0", "off"):
     if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
         _jax.config.update("jax_compilation_cache_dir", COMPILATION_CACHE_DIR)
     _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)

@@ -617,15 +617,7 @@ def _pack(theta, signs, reparam, nlo_factor, lri_pot, dtype):
     ])
 
 
-def _zero_cot(x):
-    """Cotangent zero matching custom_vjp conventions: float0 for integer
-    leaves, zeros_like for float leaves."""
-    if jnp.issubdtype(jnp.asarray(x).dtype, jnp.integer):
-        return np.zeros(np.shape(x), dtype=jax.dtypes.float0)
-    return jnp.zeros_like(x)
-
-
-@partial(jax.custom_vjp, nondiff_argnums=(0, 1, 2, 3, 4, 5, 6, 7))
+@partial(jax.custom_jvp, nondiff_argnums=(0, 1, 2, 3, 4, 5, 6, 7))
 def _probs_planar(signs, reparam, nlo_factor, lri_pot, active, mesh,
                   axis_name, interpret, theta, geom):
     pvecs = _pack(theta, signs, reparam, nlo_factor, lri_pot,
@@ -635,39 +627,36 @@ def _probs_planar(signs, reparam, nlo_factor, lri_pot, active, mesh,
     return out[..., geom["inv"]]
 
 
-def _probs_planar_fwd(signs, reparam, nlo_factor, lri_pot, active, mesh,
-                      axis_name, interpret, theta, geom):
-    out = _probs_planar(signs, reparam, nlo_factor, lri_pot, active, mesh,
-                        axis_name, interpret, theta, geom)
-    return out, (theta, geom)
-
-
-def _probs_planar_bwd(signs, reparam, nlo_factor, lri_pot, active, mesh,
-                      axis_name, interpret, res, g):
-    """One tangent launch per active component of theta (the fit's free
-    oscillation parameters; a fixed component's cotangent is discarded
-    upstream, so it gets zero here)."""
-    theta, geom = res
+@_probs_planar.defjvp
+def _probs_planar_jvp(signs, reparam, nlo_factor, lri_pot, active, mesh,
+                      axis_name, interpret, primals, tangents):
+    """One tangent launch per active component k of theta (the fit's free
+    oscillation parameters) gives the column J_k = d(probs)/d(theta_k);
+    the output tangent is sum_k dtheta_k J_k. The J_k depend on the
+    primals only, so the rule is linear in dtheta: JAX transposes it for
+    reverse mode, and forward mode (``jacfwd``) uses it directly. An
+    inactive component contributes nothing. Geometry is constant."""
+    theta, geom = primals
+    dtheta = tangents[0]
     dtype = geom["e"].dtype
 
     def pack(th):
         return _pack(th, signs, reparam, nlo_factor, lri_pot, dtype)
 
+    def run(kernel, params):
+        out = _run(kernel, params, geom, interpret=interpret, mesh=mesh,
+                   axis_name=axis_name)
+        return out[..., geom["inv"]]
+
     pvecs = pack(theta)
+    out = run(_chain_kernel, [pvecs])
     jac = jax.jacfwd(pack)(theta)  # (S, PARAM_SLOTS, 6)
-    grads = {}
+    dout = jnp.zeros_like(out)
     for k in active:
-        dp = _run(_tangent_kernel, [pvecs, jac[..., k]], geom,
-                  interpret=interpret, mesh=mesh, axis_name=axis_name)
-        grads[k] = jnp.sum(g * dp[..., geom["inv"]])
-    zero = jnp.zeros((), theta.dtype)
-    dtheta = jnp.stack(
-        [grads.get(k, zero) for k in range(theta.shape[0])]
-    ).astype(theta.dtype)
-    return dtheta, {k: _zero_cot(v) for k, v in geom.items()}
-
-
-_probs_planar.defvjp(_probs_planar_fwd, _probs_planar_bwd)
+        dout = dout + dtheta[k].astype(dtype) * run(
+            _tangent_kernel, [pvecs, jac[..., k]]
+        )
+    return out, dout
 
 
 def osc_probs_planar(theta, signs, geom, reparam=False, nlo_factor=1.0,
@@ -676,14 +665,15 @@ def osc_probs_planar(theta, signs, geom, reparam=False, nlo_factor=1.0,
     """Standard-path oscillation probabilities over prepared geometry
     (:func:`prepare_chain_geometry`), differentiable in ``theta`` =
     (theta12, theta13, theta23, deltacp, dm21, dm31) by forward-mode
-    tangents. `lri_pot` (optional, concrete real 3x3 in eV) is a constant
-    long-range-interaction potential; it is not differentiated.
+    tangents in forward and reverse mode. `lri_pot` (optional, concrete
+    real 3x3 in eV) is a constant long-range-interaction potential; it is
+    not differentiated.
 
     Returns ``(len(signs), 2, 3, n)``: (neutrino sign, initial state
     e/mu, final flavour, point), the point axis last. `signs` is a static
     tuple of +1 (nu) / -1 (nubar). `active` (static tuple of theta indices,
     default all) limits the tangent launches to those components; the
-    others get zero gradient. With a `mesh`, the launches run under
+    others get zero derivative. With a `mesh`, the launches run under
     ``shard_map`` over `axis_name`. `interpret=True` runs the kernel body
     through the Pallas interpreter (for tests off the card)."""
     if active is None:

@@ -262,14 +262,8 @@ def build_batched_objective(
 ):
     """Batched objective over many parameter vectors at once — the
     replacement for the reference's llh-server farm serving emcee walkers
-    (``llh_server.py:64``): one vmapped evaluation.
-
-    With a `mesh`, the walker axis is split across its devices: for an
-    unsharded template each device evaluates its share of the walkers
-    under ``shard_map`` over replicated template data (so kernel calls
-    spread too); for a template sharded with
-    :meth:`CompiledTemplate.shard`, XLA partitions the vmapped program over
-    the walker and event axes. B must divide by the mesh size.
+    (``llh_server.py:64``): one vmapped evaluation, batch axis sharded
+    across the mesh.
 
     Returns a jitted ``(B, n_free) -> (B,)`` callable (minimization sign
     convention, as :meth:`CompiledTemplate.build_objective`).
@@ -285,14 +279,6 @@ def build_batched_objective(
     batched = jax.vmap(raw, in_axes=(0, None, None, None))
     if mesh is None:
         jitted = jax.jit(batched)
-    elif getattr(compiled_template, "mesh", None) is None:
-        jitted = jax.jit(
-            jax.shard_map(
-                batched, mesh=mesh,
-                in_specs=(P(axis_name, None), P(), P(), P()),
-                out_specs=P(axis_name), check_vma=False,
-            )
-        )
     else:
         sharding = NamedSharding(mesh, P(axis_name, None))
         out_sharding = NamedSharding(mesh, P(axis_name))
@@ -309,4 +295,6 @@ def build_batched_objective(
             compiled_template._data_vals,
         )
 
+    # the jitted (vecs, los, his, data) program, for lowering/inspection
+    batched_objective.jitted = jitted
     return batched_objective

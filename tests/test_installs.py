@@ -90,6 +90,27 @@ def test_compilation_cache_default_in_checkout():
     assert r.stdout.strip() == os.path.join(REPO, ".jax_cache")
 
 
+def test_compilation_cache_none_when_installed(tmp_path):
+    """A package outside a source checkout (no pyproject.toml beside it,
+    as in site-packages) sets no cache directory of its own."""
+    site = tmp_path / "site-packages"
+    shutil.copytree(
+        os.path.join(REPO, "pisa_tpu"), site / "pisa_tpu",
+        ignore=shutil.ignore_patterns("resources", "__pycache__"),
+    )
+    r = _run(
+        "import jax, pisa_tpu; print(pisa_tpu.__file__);"
+        " print(jax.config.jax_compilation_cache_dir,"
+        " pisa_tpu.COMPILATION_CACHE_DIR)",
+        {"PYTHONPATH": str(site)}, drop=("JAX_COMPILATION_CACHE_DIR",),
+        cwd=str(tmp_path),
+    )
+    assert r.returncode == 0, r.stderr[-3000:]
+    where, cache = r.stdout.strip().splitlines()
+    assert where.startswith(str(site))
+    assert cache == "None None"
+
+
 @pytest.mark.parametrize("compressed", [False, True])
 def test_read_csv(tmp_path, compressed):
     text = "pdg,type,energy,label\n12,1,1.5,a\n-14,0,2.25e1,b\n"

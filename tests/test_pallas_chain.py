@@ -202,6 +202,27 @@ def test_fwdgrad_prepared_active_subset():
     assert np.abs(g_xla[[0, 3, 4]]).max() > 0  # the full gradient differs
 
 
+def test_jacfwd_matches_xla():
+    """Forward mode (``jax.jacfwd``, as the Fisher matrix takes it) runs
+    the same tangent launches: the active columns of the per-point
+    jacobian equal the XLA path's, the inactive ones are zero."""
+    e, dens, dist = _geometry(n=48, n_layers=5, seed=23)
+    geom = pc.prepare_chain_geometry(e, dens, dist)
+    theta = jnp.asarray(THETA)
+    j_k = np.asarray(jax.jacfwd(
+        lambda th: _kernel(th, (1, -1), geom, active=(1, 2, 5))
+    )(theta))
+    j_x = np.asarray(jax.jacfwd(
+        lambda th: _xla_planar(th, (1, -1), e, dens, dist)
+    )(theta))
+    assert j_k.shape == j_x.shape == (2, 2, 3, 48, 6)
+    scale = np.abs(j_x[..., [1, 2, 5]]).max()
+    assert np.abs(j_k[..., [1, 2, 5]] - j_x[..., [1, 2, 5]]).max() < (
+        (1e-10 if _F64 else 5e-5) * scale
+    )
+    assert np.all(j_k[..., [0, 3, 4]] == 0.0)
+
+
 def test_vmap_matches_loop():
     """vmap over parameter vectors (the batched objective's access
     pattern) batches the launch and equals a loop of single calls."""
@@ -289,17 +310,23 @@ def _lowering_case(kind):
                 pc.osc_probs_planar(t, (1, -1), g, active=(1, 2, 5))
             ))(th)
         return vg, (theta, geom), 4
+    if kind == "jacfwd":
+        return (lambda th, g: jax.jacfwd(lambda t: jnp.sum(
+            pc.osc_probs_planar(t, (1, -1), g, active=(1, 2, 5)),
+            axis=(0, 1, 2),
+        ))(th)), (theta, geom), 3
     thetas = jnp.tile(theta, (8, 1))
     return (lambda ths, g: jax.vmap(
         lambda t: pc.osc_probs_planar(t, (1, -1), g)
     )(ths)), (thetas, geom), 1
 
 
-@pytest.mark.parametrize("kind", ["primal", "tangent", "vmap"])
+@pytest.mark.parametrize("kind", ["primal", "tangent", "jacfwd", "vmap"])
 def test_lowers_for_cuda(kind):
     """The Triton-route kernels lower for CUDA at float32: the primal, the
-    value-and-gradient (primal + 3 tangent launches) and the vmapped
-    primal (one batched launch)."""
+    value-and-gradient (primal + 3 tangent launches), the forward-mode
+    jacobian (3 tangent launches; the unused primal is dropped) and the
+    vmapped primal (one batched launch)."""
     fn, args, n_calls = _lowering_case(kind)
     text = jax.jit(fn).trace(*args).lower(
         lowering_platforms=("cuda",)
@@ -433,6 +460,25 @@ def test_flagship_sharded_template_on_kernel_path(monkeypatch):
     ).as_text()
     assert "sdy.manual_computation" in text or "shard_map" in text
     _check_against(ct, v, *ref)
+
+
+def test_fisher_on_kernel_path(monkeypatch):
+    """The Fisher matrix (``jax.jacfwd`` of the compiled template) runs
+    through the kernel's forward-mode rule and equals the XLA path's."""
+    from pisa_tpu.analysis.fisher import get_fisher_matrix
+
+    ct_x = _small_flagship()
+    v = np.clip(ct_x.current_rescaled_values() + _V_OFFSET, 0.05, 0.95)
+    f_x = get_fisher_matrix(ct_x, rescaled_vec=v).matrix
+    _use_interpreted_kernel(monkeypatch)
+    ct = _small_flagship()
+    assert "osc_blk_e" in ct._trace_data.containers[0]
+    f_k = get_fisher_matrix(ct, rescaled_vec=v).matrix
+    assert np.all(np.isfinite(f_k))
+    np.testing.assert_allclose(
+        f_k, f_x, rtol=1e-7 if _F64 else 1e-3,
+        atol=(1e-9 if _F64 else 1e-4) * np.abs(f_x).max(),
+    )
 
 
 # -- on the card ------------------------------------------------------------
